@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; nothing is caught):
+
+1. card: nvidia-smi name and power limit, CUDA version; CUDA is required;
+2. build: the native host library and the CUDA kernel, from source;
+3. kernel = plain version, exactly, in both launch modes over a sweep of
+   flank/read widths and edge rows, and timed at the discover path's
+   screen shape;
+4. scale: the screen over a tumour-library candidate set (1,048,576
+   reads of 100 bp against 4,096 flank pairs up to 480 bp): kernel time,
+   an exact check against the plain version on a 65,536-read subsample,
+   and survivors == the planted junction reads;
+5. end to end: ``defuse_tpu_torch`` discover on the 92,800-pair bench
+   dataset, its artifacts byte-identical to its own host-only run
+   (``use_device=False``: every candidate realigned, no screen), with the
+   screen kernel's launches counted.  Identity with ``defuse_tpu`` itself
+   is held by ``tests/test_torch_discover.py``.
+
+All kernel comparisons are exact (integer scores; tolerance 0).  Prints a
+JSON line of per-kernel results, then ``{"ok": true, "device": ...}`` last.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+# discover path's screen shape on the bench dataset: 46,953 candidate
+# reads of 50 bp (L = 64), 96 flank pairs up to 220 bp (R = 256)
+MAIN_B, MAIN_U, MAIN_R, MAIN_L, MAIN_READ, MAIN_FLANK = \
+    46_953, 96, 256, 64, 50, 220
+# tumour-library screen
+SCALE_B, SCALE_U, SCALE_R, SCALE_L, SCALE_READ, SCALE_FLANK = \
+    1 << 20, 4096, 512, 128, 100, 480
+SCALE_SUB = 1 << 16
+TRUE_FRACTION = 0.05
+MIN_SIDE = 20
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def say(card, msg):
+    print(f"[{card}] {msg}", flush=True)
+
+
+def time_ms(fn, reps):
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
+    after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_codes(rng, shape, lens):
+    """ACGT codes (shape) with each row zero-padded past its length."""
+    a = ACGT[rng.integers(0, 4, shape)]
+    a[np.arange(shape[1])[None, :] >= np.asarray(lens)[:, None]] = 0
+    return a
+
+
+def reverse_rows(a, lens):
+    """Each row reversed within its length (pad stays at the end)."""
+    pos = np.asarray(lens)[:, None] - 1 - np.arange(a.shape[1])[None, :]
+    out = np.take_along_axis(a, np.clip(pos, 0, a.shape[1] - 1), axis=1)
+    out[pos < 0] = 0
+    return out
+
+
+# --- phase 3 ----------------------------------------------------------------
+
+def sweep_case(rng, R, L, B=256, U=24):
+    """Seeded instances at widths (R, L) with edge rows: zero-length reads
+    and flanks, all-match reads and all-N reads against all-N flanks."""
+    from defuse_tpu_torch.convert import screen_min_scores
+    ref_lens = rng.integers(0, R + 1, B).astype(np.int32)
+    read_lens = rng.integers(0, L + 1, B).astype(np.int32)
+    ref_lens[:2] = R
+    read_lens[:2] = L
+    read_lens[2] = 0
+    ref_lens[3] = 0
+    refs = random_codes(rng, (B, R), ref_lens)
+    reads = random_codes(rng, (B, L), read_lens)
+    # all-match reads: a substring of the instance's own flank
+    for b in range(4, B, 3):
+        n = min(int(ref_lens[b]), int(read_lens[b]))
+        s = int(rng.integers(0, ref_lens[b] - n + 1))
+        reads[b, :n] = refs[b, s:s + n]
+    # all-N rows: 'N' == 'N' scores as a match
+    refs[5, :ref_lens[5]] = ord("N")
+    reads[5, :read_lens[5]] = ord("N")
+    reads[7, :read_lens[7]] = ord("N")
+
+    ulen1 = rng.integers(0, R + 1, U).astype(np.int32)
+    ulen2 = rng.integers(0, R + 1, U).astype(np.int32)
+    ulen1[0] = ulen2[0] = R
+    ulen1[1] = 0
+    u1 = random_codes(rng, (U, R), ulen1)
+    u2 = random_codes(rng, (U, R), ulen2)
+    u1[2, :ulen1[2]] = ord("N")
+    idx = rng.integers(0, U, B).astype(np.int32)
+    sreads = reads.copy()
+    for b in range(1, B, 2):  # planted junctions: flank1 tail + flank2 head
+        k, n = int(idx[b]), int(read_lens[b])
+        a = n // 2
+        if ulen1[k] >= a and ulen2[k] >= n - a:
+            sreads[b, :a] = u1[k, ulen1[k] - a:ulen1[k]]
+            sreads[b, a:n] = u2[k, :n - a]
+    screen = (u1, ulen1, reverse_rows(u2, ulen2), ulen2, idx, sreads,
+              read_lens, screen_min_scores(read_lens))
+    return (refs, ref_lens, reads, read_lens), screen
+
+
+def phase_kernel_equals_plain(card, dev, rng):
+    from defuse_tpu_torch.convert import screen_operands
+    from defuse_tpu_torch.ops.split_dp_batch import (dp_row_maxima,
+                                                     screen_candidates_ref)
+    from defuse_tpu_torch.ops.split_dp_cuda import (dp_row_maxima_cuda,
+                                                    screen_candidates)
+    err_rowmax = err_screen = 0
+    shapes = ((60, 24), (90, 24), (100, 24), (130, 64), (128, 64),
+              (257, 64), (384, 64), (512, 128))
+    for R, L in shapes:
+        rowmax_in, screen_in = sweep_case(rng, R, L)
+        ts = [torch.from_numpy(a).to(dev) for a in rowmax_in]
+        want = dp_row_maxima(*ts)
+        got = dp_row_maxima_cuda(*ts)
+        e = int((got - want).abs().max())
+        err_rowmax = max(err_rowmax, e)
+        check(e == 0, f"rowmax kernel differs from plain at R={R} L={L}")
+        ops = screen_operands(*screen_in, dev)
+        want = screen_candidates_ref(*ops)
+        got = screen_candidates(*ops)
+        e = int((got - want).abs().max())
+        err_screen = max(err_screen, e)
+        check(e == 0, f"screen kernel differs from plain at R={R} L={L}")
+        check(int((want > 0).sum()) > 0, f"no survivor at R={R} L={L}")
+    say(card, f"kernel == plain (exact) in both modes at (R, L) = {shapes}")
+    return err_rowmax, err_screen
+
+
+def screen_set(rng, B, U, R, L, read_len, max_flank, min_flank):
+    """Candidate set: random decoy reads and TRUE_FRACTION junction reads
+    (a flank1 substring then a flank2 substring, >= MIN_SIDE bases each).
+    Returns (operands as numpy, true-junction mask)."""
+    from defuse_tpu_torch.convert import screen_min_scores
+    mean, sd = 0.625 * max_flank, 0.125 * max_flank
+    ulen1 = np.clip(rng.normal(mean, sd, U), min_flank, max_flank) \
+        .astype(np.int32)
+    ulen2 = np.clip(rng.normal(mean, sd, U), min_flank, max_flank) \
+        .astype(np.int32)
+    u1 = random_codes(rng, (U, R), ulen1)
+    u2 = random_codes(rng, (U, R), ulen2)
+    idx = rng.integers(0, U, B).astype(np.int32)
+    read_lens = np.full(B, read_len, dtype=np.int32)
+    reads = random_codes(rng, (B, L), read_lens)
+
+    true_mask = np.zeros(B, dtype=bool)
+    t = rng.choice(B, int(B * TRUE_FRACTION), replace=False)
+    true_mask[t] = True
+    k = idx[t]
+    a = rng.integers(MIN_SIDE, read_len - MIN_SIDE + 1, len(t))
+    s1 = (rng.random(len(t)) * (ulen1[k] - a + 1)).astype(np.int64)
+    s2 = (rng.random(len(t)) * (ulen2[k] - (read_len - a) + 1)) \
+        .astype(np.int64)
+    p = np.arange(read_len)[None, :]
+    first = p < a[:, None]
+    c1 = np.clip(s1[:, None] + p, 0, R - 1)
+    c2 = np.clip(s2[:, None] + p - a[:, None], 0, R - 1)
+    reads[t[:, None], p] = np.where(first, u1[k[:, None], c1],
+                                    u2[k[:, None], c2])
+    ops = (u1, ulen1, reverse_rows(u2, ulen2), ulen2, idx, reads, read_lens,
+           screen_min_scores(read_lens))
+    return ops, true_mask
+
+
+def timed_screen(card, ops, true_mask, label, sub):
+    """Kernel vs plain on the card: exact over the first ``sub``
+    candidates, survivors == the planted junction reads, both timed.
+    Returns (kernel ms for all, plain ms for ``sub``, max abs error)."""
+    from defuse_tpu_torch.ops.split_dp_batch import screen_candidates_ref
+    from defuse_tpu_torch.ops.split_dp_cuda import screen_candidates
+    B = ops[5].shape[0]
+    kernel_ms = time_ms(lambda: screen_candidates(*ops), 10)
+    sub_ops = ops[:4] + tuple(a[:sub].contiguous() for a in ops[4:])
+    want = screen_candidates_ref(*sub_ops)
+    got = screen_candidates(*sub_ops)
+    err = int((got - want).abs().max())
+    check(err == 0, f"{label}: kernel differs from plain")
+    plain_ms = time_ms(lambda: screen_candidates_ref(*sub_ops), 2)
+    say(card, f"{label}: kernel {kernel_ms:.3f} ms for {B} candidates "
+              f"({B / kernel_ms * 1e3:.0f} candidates/s); plain "
+              f"{plain_ms:.3f} ms for {sub} ({sub / plain_ms * 1e3:.0f} "
+              "candidates/s)")
+    survivors = (screen_candidates(*ops) > 0).cpu().numpy()
+    check(np.array_equal(survivors, true_mask),
+          f"{label}: survivors {int(survivors.sum())} != planted junction "
+          f"reads {int(true_mask.sum())} (mismatches "
+          f"{int((survivors != true_mask).sum())})")
+    say(card, f"{label}: survivors == {int(true_mask.sum())} planted "
+              "junction reads")
+    return kernel_ms, plain_ms, err
+
+
+def phase_main_shape(card, dev, rng):
+    from defuse_tpu_torch.convert import screen_operands
+    ops_np, true_mask = screen_set(rng, MAIN_B, MAIN_U, MAIN_R, MAIN_L,
+                                   MAIN_READ, MAIN_FLANK, 120)
+    ops = screen_operands(*ops_np, dev)
+    return timed_screen(card, ops, true_mask,
+                        f"screen at discover shape (R={MAIN_R}, L={MAIN_L})",
+                        MAIN_B)
+
+
+# --- phase 4 ----------------------------------------------------------------
+
+def phase_scale(card, dev, rng):
+    from defuse_tpu_torch.convert import screen_operands
+    t0 = time.time()
+    ops_np, true_mask = screen_set(rng, SCALE_B, SCALE_U, SCALE_R, SCALE_L,
+                                   SCALE_READ, SCALE_FLANK, 120)
+    t1 = time.time()
+    ops = screen_operands(*ops_np, dev)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    say(card, f"scale set: make {t1 - t0:.2f} s, upload {t2 - t1:.3f} s "
+              f"(reads {ops[5].numel() / 2**20:.0f} MiB, flanks "
+              f"{2 * ops[0].numel() / 2**20:.1f} MiB)")
+    return timed_screen(card, ops, true_mask,
+                        f"screen at scale (R={SCALE_R}, L={SCALE_L})",
+                        SCALE_SUB)
+
+
+# --- phase 5 ----------------------------------------------------------------
+
+ARTIFACTS = ("clusters", "clusters.sc", "clusters.sc.regions",
+             "splitreads.alignments", "splitreads.seq", "splitreads.break",
+             "splitreads.predalign")
+
+
+def phase_end_to_end(card, work):
+    import bench
+    from defuse_tpu_torch.ops import split_dp_cuda
+    from defuse_tpu_torch.pipeline.discover import discover_fusions
+
+    t0 = time.time()
+    _ds, paths, n_pairs = bench.build_dataset(work)
+    say(card, f"bench dataset: {n_pairs} read pairs in "
+              f"{time.time() - t0:.2f} s")
+    kw = dict(spanning=str(paths["spanning"]),
+              improper=str(paths["improper"]),
+              fastq1=str(paths["fastq1"]), fastq2=str(paths["fastq2"]),
+              reference=str(paths["reference"]), exons=str(paths["exons"]),
+              fragment_mean=bench.MEAN, fragment_stddev=bench.STD,
+              precision=bench.PREC, min_cluster_size=bench.MINCL,
+              min_read_length=bench.MINREAD, max_read_length=bench.MAXREAD)
+    t0 = time.time()
+    discover_fusions(outdir=str(work / "host"), use_device=False, **kw)
+    t_host = time.time() - t0
+
+    split_dp_cuda.reset_launches()
+    t0 = time.time()
+    discover_fusions(outdir=str(work / "port"), device="cuda", **kw)
+    t_port = time.time() - t0
+    launches = dict(split_dp_cuda.LAUNCHES)
+
+    for name in ARTIFACTS:
+        a = (work / "host" / name).read_bytes()
+        b = (work / "port" / name).read_bytes()
+        check(a == b, f"{name} differs from the host-only run")
+    metrics = json.loads((work / "port" / "metrics.discover.json")
+                         .read_text())
+    counters = metrics["counters"]
+    check(counters.get("split_dp_impl") == "cuda",
+          f"split_dp_impl is {counters.get('split_dp_impl')!r}")
+    check(launches["split_dp_screen"] > 0, "screen kernel never launched")
+    check("jax" not in sys.modules, "jax was imported")
+    check(len((work / "port" / "splitreads.seq").read_bytes()) > 0,
+          "no fusion sequences produced")
+    stages = " ".join(f"{s['stage'].removeprefix('discover:')}="
+                      f"{s['seconds']}" for s in metrics["stages"])
+    say(card, f"discover: port {t_port:.3f} s ({n_pairs / t_port:.0f} "
+              f"pairs/s), host-only run (no screen) {t_host:.3f} s; "
+              f"{len(ARTIFACTS)} artifacts byte-identical")
+    say(card, f"discover stages (s): {stages}")
+    say(card, f"screen: {int(counters['screen_candidates'])} candidates, "
+              f"{int(counters['screen_survivors'])} survivors, "
+              f"launches {launches}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from defuse_tpu_torch.core.devices import gpu_identity, require_cuda
+    from defuse_tpu_torch.ops import _build
+    from defuse_tpu_torch.pipeline.discover import require_native
+
+    # --- phase 1: card ---------------------------------------------------
+    dev = require_cuda("cuda")
+    ident = gpu_identity()
+    card = ident.splitlines()[0]
+    print(ident, flush=True)
+    say(card, f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+              f"{torch.cuda.get_device_name(0)}")
+
+    # --- phase 2: build --------------------------------------------------
+    t0 = time.time()
+    require_native()
+    t1 = time.time()
+    _path, report = _build.build("split_dp")
+    t2 = time.time()
+    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
+    say(card, f"build: native library {t1 - t0:.1f} s, split_dp.cu "
+              f"{t2 - t1:.1f} s; ptxas: {'; '.join(regs) or 'cached'}")
+
+    rng = np.random.default_rng(2024)
+    # --- phase 3: kernel == plain ----------------------------------------
+    err_rowmax, err_screen = phase_kernel_equals_plain(card, dev, rng)
+    main_ms, main_plain_ms, e = phase_main_shape(card, dev, rng)
+    err_screen = max(err_screen, e)
+    # --- phase 4: scale --------------------------------------------------
+    _ms, _plain, e = phase_scale(card, dev, rng)
+    err_screen = max(err_screen, e)
+    # --- phase 5: end to end ---------------------------------------------
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as work:
+        launches = phase_end_to_end(card, pathlib.Path(work))
+
+    say(card, f"rowmax entry (dp_row_maxima_cuda, off the discover path): "
+              f"max_abs_err {err_rowmax}")
+    print(json.dumps({"kernels": [{
+        "name": "split_dp_screen", "route": "cuda",
+        "source": "defuse_tpu_torch/csrc/split_dp.cu",
+        "replaces": "defuse_tpu/ops/split_dp_pallas.py:222",
+        "launches": launches["split_dp_screen"],
+        "max_abs_err": err_screen, "ms": main_ms,
+        "plain_ms": main_plain_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

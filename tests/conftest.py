@@ -32,6 +32,11 @@ REF_BIN = REPO / "ref_build" / "bin"
 REFERENCE = pathlib.Path("/root/reference")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where CUDA is absent)")
+
+
 @pytest.fixture(scope="session")
 def ref_binaries():
     """Build (once) and return the golden reference binaries directory.

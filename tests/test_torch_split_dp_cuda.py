@@ -1,0 +1,63 @@
+"""The CUDA kernel of ``defuse_tpu_torch/csrc/split_dp.cu`` against its
+plain PyTorch version on the card, exactly, in both launch modes.  Skips
+where CUDA is absent.  Imports no ``jax``, so it also runs on a machine
+without it:
+
+    python -m pytest --noconftest -p no:cacheprovider \
+        tests/test_torch_split_dp_cuda.py
+"""
+
+import pytest
+import torch
+
+from defuse_tpu_torch.convert import screen_operands
+from defuse_tpu_torch.ops import split_dp_cuda
+from defuse_tpu_torch.ops.split_dp_batch import (dp_row_maxima,
+                                                 screen_candidates_ref)
+
+from torch_cases import SWEEP, screen_case, sweep_inputs, tensors
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L", SWEEP + ((512, 128),))
+def test_kernel_matches_plain_on_card(cuda_device, R, L):
+    refs, rl, reads, ql = (t.to(cuda_device)
+                           for t in tensors(*sweep_inputs(R, L)))
+    got = split_dp_cuda.dp_row_maxima_cuda(refs, rl, reads, ql)
+    torch.testing.assert_close(got, dp_row_maxima(refs, rl, reads, ql),
+                               rtol=0, atol=0)
+    ops = screen_operands(*screen_case(), cuda_device)
+    torch.testing.assert_close(split_dp_cuda.screen_candidates(*ops),
+                               screen_candidates_ref(*ops), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_launches_are_counted_on_card(cuda_device):
+    split_dp_cuda.reset_launches()
+    ops = screen_operands(*screen_case(), cuda_device)
+    split_dp_cuda.screen_candidates(*ops)
+    split_dp_cuda.dp_row_maxima_cuda(
+        *(t.to(cuda_device) for t in tensors(*sweep_inputs(60, 24))))
+    torch.cuda.synchronize()
+    assert split_dp_cuda.LAUNCHES == {"split_dp_rowmax": 1,
+                                      "split_dp_screen": 1}
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    refs, rl, reads, ql = (t.to(cuda_device)
+                           for t in tensors(*sweep_inputs(60, 24)))
+    with pytest.raises(TypeError, match="reads"):
+        split_dp_cuda.dp_row_maxima_cuda(refs, rl, reads.int(), ql)
+    with pytest.raises(ValueError, match="contiguous"):
+        split_dp_cuda.dp_row_maxima_cuda(refs[:, ::2], rl, reads, ql)
+    wide = torch.zeros((16, 1024), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="flank width"):
+        split_dp_cuda.dp_row_maxima_cuda(wide, rl, reads, ql)
