@@ -6,7 +6,8 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: nvidia-smi name and power limit, CUDA version; CUDA is required;
-2. build: the native host library and the CUDA kernel, from source;
+2. build: the native host library and the three CUDA kernels, from
+   source (one ``nvcc`` each, all started together);
 3. kernel = plain version, exactly, in both launch modes over a sweep of
    flank/read widths and edge rows, and timed at the discover path's
    screen shape;
@@ -18,9 +19,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dataset, its artifacts byte-identical to its own host-only run
    (``use_device=False``: every candidate realigned, no screen), with the
    screen kernel's launches counted.  Identity with ``defuse_tpu`` itself
-   is held by ``tests/test_torch_discover.py``.
+   is held by ``tests/test_torch_discover.py``;
+6. verify kernel = plain version, exactly, on edge cases (every lane,
+   candidates in the plane's last word, read lengths 0, 1, 9, 10, 11 and
+   L, N on either side, repeated reads), then timed at the bench's verify
+   microbench shape (4,000,000 bases, 20,000 reads of 50 bp, 65,536 and
+   524,288 candidates): marginal candidates/s of kernel and plain;
+7. frontend: the port's ``align_reads`` on the bench dataset's reads with
+   ``DEFUSE_DEVICE_VERIFY=force`` (the Python seed path, every candidate
+   verified by the kernel) and on the native route, artifacts
+   byte-identical, the kernel's launches counted, both wall times;
+8. probe and roofline: each issue-probe mix = its plain version exactly;
+   the census of the probe's loops and of ``screen_kernel<C>``'s row loops
+   against the machine code (``cuobjdump -sass``), within 20% per class;
+   the screen's roofline, with the probe's launches counted.
 
-All kernel comparisons are exact (integer scores; tolerance 0).  Prints a
+All kernel comparisons are exact (integer results; tolerance 0).  Prints a
 JSON line of per-kernel results, then ``{"ok": true, "device": ...}`` last.
 """
 
@@ -35,7 +49,11 @@ import time
 import numpy as np
 import torch
 
+from defuse_tpu_torch.utils.profiling import cuda_time_ms as time_ms
+
 REPO = pathlib.Path(__file__).resolve().parent
+OUT = REPO / "build" / "smoke"  # SASS dumps and roofline.json
+sys.path.insert(1, str(REPO / "tests"))  # torch_cases: inputs shared with tests
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 # discover path's screen shape on the bench dataset: 46,953 candidate
@@ -50,6 +68,17 @@ TRUE_FRACTION = 0.05
 MIN_SIDE = 20
 
 
+KERNEL_SOURCES = ("split_dp", "verify", "issue_probe")
+
+
+def timed_build(name):
+    """(seconds, ptxas report) of building ``csrc/<name>.cu``."""
+    from defuse_tpu_torch.ops import _build
+    t0 = time.time()
+    _path, report = _build.build(name)
+    return time.time() - t0, report
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -57,21 +86,6 @@ def check(cond, msg):
 
 def say(card, msg):
     print(f"[{card}] {msg}", flush=True)
-
-
-def time_ms(fn, reps):
-    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events,
-    after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def random_codes(rng, shape, lens):
@@ -260,15 +274,21 @@ ARTIFACTS = ("clusters", "clusters.sc", "clusters.sc.regions",
              "splitreads.predalign")
 
 
-def phase_end_to_end(card, work):
+def bench_dataset(card, work):
+    import bench
+    t0 = time.time()
+    ds, paths, n_pairs = bench.build_dataset(work)
+    say(card, f"bench dataset: {n_pairs} read pairs in "
+              f"{time.time() - t0:.2f} s")
+    return ds, paths, n_pairs
+
+
+def phase_end_to_end(card, work, dataset):
     import bench
     from defuse_tpu_torch.ops import split_dp_cuda
     from defuse_tpu_torch.pipeline.discover import discover_fusions
 
-    t0 = time.time()
-    _ds, paths, n_pairs = bench.build_dataset(work)
-    say(card, f"bench dataset: {n_pairs} read pairs in "
-              f"{time.time() - t0:.2f} s")
+    _ds, paths, n_pairs = dataset
     kw = dict(spanning=str(paths["spanning"]),
               improper=str(paths["improper"]),
               fastq1=str(paths["fastq1"]), fastq2=str(paths["fastq2"]),
@@ -311,13 +331,242 @@ def phase_end_to_end(card, work):
     return launches
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+VERIFY_N, VERIFY_READS, VERIFY_READ = 4_000_000, 20_000, 50
+VERIFY_BATCHES = (65_536, 524_288)
+
+
+def phase_verify(card, dev, rng):
+    from defuse_tpu_torch.convert import verify_operands
+    from defuse_tpu_torch.ops.verify_batch import verify_packed3_ref
+    from defuse_tpu_torch.ops.verify_cuda import verify_packed3
+    from torch_cases import verify_case
+
+    codes, starts, reads, ridx, lens = verify_case(int(rng.integers(1 << 30)))
+    ops = verify_operands(codes, starts, reads, ridx, lens, dev)
+    L = reads.shape[1]
+    want = verify_packed3_ref(*ops, L)
+    got = verify_packed3(*ops, L)
+    err = int((got - want).abs().max())
+    check(err == 0, "verify kernel differs from plain on the edge cases")
+    check(int(want.max()) > 0 and int((want == 0).sum()) > 0,
+          "edge cases hold no mismatch or no exact match")
+    say(card, f"verify kernel == plain (exact) on {len(starts)} edge-case "
+              "candidates")
+
+    codes = rng.integers(0, 4, VERIFY_N).astype(np.int8)
+    reads = rng.integers(0, 4, (VERIFY_READS, VERIFY_READ)).astype(np.int8)
+    lens = np.full(VERIFY_READS, VERIFY_READ, np.int32)
+    C = VERIFY_BATCHES[-1]
+    starts = rng.integers(0, VERIFY_N - VERIFY_READ, C)
+    ridx = rng.integers(0, VERIFY_READS, C).astype(np.int32)
+    ref3, w10, l10, reads3, ridx_t, lens_t = verify_operands(
+        codes, starts, reads, ridx, lens, dev)
+    times = {}
+    # the kernel from a CUDA graph of 20 launches (a launch takes less time
+    # than the host's wrapper call); the plain version's ops run longer
+    for name, fn, graph in (("kernel", verify_packed3, True),
+                            ("plain", verify_packed3_ref, False)):
+        for c in VERIFY_BATCHES:
+            args = (ref3, w10[:c], l10[:c], reads3, ridx_t[:c], lens_t,
+                    VERIFY_READ)
+            times[name, c] = time_ms(lambda: fn(*args), 20, graph=graph,
+                                     rounds=3)
+    full = (ref3, w10, l10, reads3, ridx_t, lens_t, VERIFY_READ)
+    e = int((verify_packed3(*full) - verify_packed3_ref(*full)).abs().max())
+    check(e == 0, "verify kernel differs from plain at the microbench shape")
+    for name in ("kernel", "plain"):
+        t_small, t_big = times[name, VERIFY_BATCHES[0]], times[name, C]
+        marginal = (t_big - t_small) / (C - VERIFY_BATCHES[0])  # ms/cand
+        say(card, f"verify {name}: {t_big:.3f} ms for {C} candidates, "
+                  f"{t_small:.3f} ms for {VERIFY_BATCHES[0]}; marginal "
+                  f"{1e3 / marginal:.0f} candidates/s "
+                  f"({VERIFY_READ * 1e3 / marginal:.0f} bases/s)")
+    return max(err, e), times["kernel", C], times["plain", C]
+
+
+# --- phase 7 ----------------------------------------------------------------
+
+FRONTEND_ARTIFACTS = ("spanning", "improper", "concordant_sam",
+                      "pair_table")
+
+
+def frontend_bytes(res):
+    """Each artifact's bytes, the concordant SAM decompressed (its gzip
+    members differ between routes)."""
+    import gzip
+    out = {}
+    for key in FRONTEND_ARTIFACTS:
+        path = res[key]
+        check(path is not None, f"frontend wrote no {key}")
+        out[key] = gzip.open(path).read() if path.endswith(".gz") \
+            else pathlib.Path(path).read_bytes()
+    return out
+
+
+def phase_frontend(card, work, dataset):
+    import os
+
+    from defuse_tpu_torch.align.frontend import align_reads
+    from defuse_tpu_torch.ops import verify_cuda
+    from torch_cases import frontend_config
+
+    ds, paths, n_pairs = dataset
+    config = frontend_config(ds, work / "refs")
+    fq = (str(paths["fastq1"]), str(paths["fastq2"]))
+    t0 = time.time()  # builds and persists the seed indices
+    align_reads(config, str(work / "fe_warm"), *fq, device="cuda")
+    t_index = time.time() - t0
+    t0 = time.time()
+    native = align_reads(config, str(work / "fe_native"), *fq, device="cuda")
+    t_native = time.time() - t0
+
+    verify_cuda.reset_launches()
+    os.environ["DEFUSE_DEVICE_VERIFY"] = "force"
+    try:
+        t0 = time.time()
+        forced = align_reads(config, str(work / "fe_device"), *fq,
+                             device="cuda")
+        t_device = time.time() - t0
+    finally:
+        del os.environ["DEFUSE_DEVICE_VERIFY"]
+    launches = dict(verify_cuda.LAUNCHES)
+
+    a, b = frontend_bytes(native), frontend_bytes(forced)
+    for key in FRONTEND_ARTIFACTS:
+        check(a[key] == b[key], f"frontend {key} differs between the "
+                                "native and the forced-device route")
+    check(len(a["improper"]) > 0 and len(a["spanning"]) > 0,
+          "frontend wrote no discordant alignments")
+    check(launches["verify_packed3"] > 0, "verify kernel never launched")
+    check("jax" not in sys.modules, "jax was imported")
+    say(card, f"frontend on {n_pairs} pairs: forced device verify "
+              f"{t_device:.3f} s ({n_pairs / t_device:.0f} pairs/s), native "
+              f"route {t_native:.3f} s ({n_pairs / t_native:.0f} pairs/s); "
+              f"first run with index build {t_index:.3f} s; "
+              f"{len(FRONTEND_ARTIFACTS)} artifacts byte-identical "
+              f"(improper {len(a['improper'])} B, spanning "
+              f"{len(a['spanning'])} B); launches {launches}")
+    return launches
+
+
+# --- phase 8 ----------------------------------------------------------------
+
+PROBE_CHECK_ITERS = 256
+
+
+def class_row(counts):
+    return " ".join(f"{k}={v:g}" for k, v in counts.items())
+
+
+def phase_probe_equals_plain(card, dev):
+    from defuse_tpu_torch.ops import split_dp_census as sc
+    seed = sc.probe_seed(dev)
+    err = 0
+    kernel_ms = plain_ms = 0.0
+    for mix in sc.MIXES:
+        want = sc.issue_probe_ref(seed, PROBE_CHECK_ITERS, mix)
+        got = sc.issue_probe(seed, PROBE_CHECK_ITERS, mix)
+        e = int((got - want).abs().max())
+        check(e == 0, f"issue probe {mix} differs from plain")
+        err = max(err, e)
+        kernel_ms += time_ms(
+            lambda: sc.issue_probe(seed, PROBE_CHECK_ITERS, mix), 5)
+        plain_ms += time_ms(
+            lambda: sc.issue_probe_ref(seed, PROBE_CHECK_ITERS, mix), 1)
+    say(card, f"issue probe == plain (exact) for mixes {sc.MIXES}, "
+              f"{seed.shape[0]} threads x {PROBE_CHECK_ITERS} steps: kernel "
+              f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (four mixes)")
+    return err, kernel_ms, plain_ms
+
+
+def phase_sass(card):
+    from defuse_tpu_torch.ops import _build
+    from defuse_tpu_torch.ops import split_dp_census as sc
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    bad = []
+    text = _build.sass("issue_probe")
+    (OUT / "issue_probe.sass").write_text(text)
+    loops = sc.probe_loops(text)
+    for mix in sc.MIXES:
+        check(mix in loops, f"no loop found in the probe's {mix} kernel")
+        lp = loops[mix]
+        want = sc.mix_census(mix)
+        say(card, f"SASS probe {mix} loop trip: {class_row(lp['counts'])}; "
+                  f"census {class_row(want)}; opcodes {lp['opcodes']}")
+        bad += [f"probe {mix} {m}" for m in
+                sc.census_mismatches(want, lp["counts"])]
+    text = _build.sass("split_dp")
+    (OUT / "split_dp.sass").write_text(text)
+    rows = sc.screen_row_loops(text)
+    for C in (4, 8, 16, 32):
+        # one row loop per DP direction, forward first
+        check(len(rows.get(C, ())) == 2,
+              f"screen_kernel<{C}>: {len(rows.get(C, ()))} row loops, "
+              "expected one per DP")
+        for direction, lp in zip(("forward", "reversed"), rows[C]):
+            want = sc.row_census(C, direction == "reversed")["total"]
+            say(card, f"SASS screen_kernel<{C}> {direction} row loop, per "
+                      f"row ({lp['rows_per_trip']} per trip): "
+                      f"{class_row(lp['per_row'])}; census "
+                      f"{class_row(want)}; opcodes {lp['opcodes']}")
+            bad += [f"screen<{C}> {direction} {m}" for m in
+                    sc.census_mismatches(want, lp["per_row"])]
+    check(not bad, "census differs from the machine code by more than "
+                   f"{sc.TOLERANCE:.0%}: " + "; ".join(bad))
+    say(card, "census within 20% of the SASS in every class")
+
+
+def phase_roofline(card, dev):
+    import subprocess
+    from defuse_tpu_torch.ops import split_dp_census as sc
+
+    sc.reset_launches()
+    roof = sc.screen_roofline(dev)
+    launches = dict(sc.LAUNCHES)
+    check(launches["issue_probe"] > 0, "issue probe never launched")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(clocks.split(",")[0].split()[0])
+    probe = roof["probe"]
+    for mix, m in probe["mixes"].items():
+        say(card, f"probe {mix}: {m['ns_per_step']:.4f} ns/step "
+                  f"(t {m['t_small_ms']:.3f} / {m['t_big_ms']:.3f} ms at "
+                  f"{probe['iters']} steps), {m['warp_instr_per_ns']:.2f} "
+                  f"warp instr/ns = {m['warp_instr_per_ns'] * 1e3 / mhz / sms:.3f}"
+                  f" per SM per clock")
+    cost = roof["ns_per_warp_instr"]
+    say(card, "cost per warp instruction (card-wide ns): " + " ".join(
+        f"{k}={v:.3e} ({1e3 / v / mhz / sms:.3f}/SM/clk)"
+        for k, v in cost.items()))
+    say(card, f"clocks.sm, clocks.max.sm after the probe: {clocks}; "
+              f"{sms} SMs")
+    census = roof["census"]
+    say(card, f"screen roofline (R={roof['R']}, L={roof['L']}, "
+              f"{roof['read_len']} bp, B={roof['batches']}, "
+              f"{roof['batch_ms']} ms): measured "
+              f"{roof['measured_us_per_read']:.5f} us/candidate, ceiling "
+              f"{roof['ceiling_us_per_read']:.5f} us/candidate, "
+              f"{roof['pct_of_ceiling']:.1f}% of ceiling; census per "
+              f"candidate {census['per_candidate']} "
+              f"(C={census['cols_per_lane']}, {census['rows']} rows)")
+    say(card, f"probe launches {launches}")
+    (OUT / "roofline.json").write_text(
+        json.dumps(roof, indent=1))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 1
     from defuse_tpu_torch.core.devices import gpu_identity, require_cuda
-    from defuse_tpu_torch.ops import _build
     from defuse_tpu_torch.pipeline.discover import require_native
 
     # --- phase 1: card ---------------------------------------------------
@@ -329,14 +578,21 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)}")
 
     # --- phase 2: build --------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    require_native()
-    t1 = time.time()
-    _path, report = _build.build("split_dp")
-    t2 = time.time()
-    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    say(card, f"build: native library {t1 - t0:.1f} s, split_dp.cu "
-              f"{t2 - t1:.1f} s; ptxas: {'; '.join(regs) or 'cached'}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = {name: pool.submit(timed_build, name)
+                  for name in KERNEL_SOURCES}
+        require_native()
+        t_native = time.time() - t0
+        for name, fut in builds.items():
+            seconds, report = fut.result()
+            regs = [ln.strip() for ln in report.splitlines()
+                    if "registers" in ln]
+            say(card, f"build: {name}.cu {seconds:.1f} s; ptxas: "
+                      f"{'; '.join(regs) or 'cached'}")
+    say(card, f"build: native library {t_native:.1f} s, all "
+              f"{time.time() - t0:.1f} s")
 
     rng = np.random.default_rng(2024)
     # --- phase 3: kernel == plain ----------------------------------------
@@ -346,10 +602,20 @@ def main() -> int:
     # --- phase 4: scale --------------------------------------------------
     _ms, _plain, e = phase_scale(card, dev, rng)
     err_screen = max(err_screen, e)
-    # --- phase 5: end to end ---------------------------------------------
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as work:
-        launches = phase_end_to_end(card, pathlib.Path(work))
+        work = pathlib.Path(work)
+        dataset = bench_dataset(card, work)
+        # --- phase 5: end to end -----------------------------------------
+        screen_launches = phase_end_to_end(card, work, dataset)
+        # --- phase 6: verify kernel == plain -----------------------------
+        err_verify, verify_ms, verify_plain_ms = phase_verify(card, dev, rng)
+        # --- phase 7: frontend -------------------------------------------
+        verify_launches = phase_frontend(card, work, dataset)
+    # --- phase 8: probe and roofline -------------------------------------
+    err_probe, probe_ms, probe_plain_ms = phase_probe_equals_plain(card, dev)
+    phase_sass(card)
+    probe_launches = phase_roofline(card, dev)
 
     say(card, f"rowmax entry (dp_row_maxima_cuda, off the discover path): "
               f"max_abs_err {err_rowmax}")
@@ -357,9 +623,21 @@ def main() -> int:
         "name": "split_dp_screen", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/split_dp.cu",
         "replaces": "defuse_tpu/ops/split_dp_pallas.py:222",
-        "launches": launches["split_dp_screen"],
+        "launches": screen_launches["split_dp_screen"],
         "max_abs_err": err_screen, "ms": main_ms,
-        "plain_ms": main_plain_ms}]}), flush=True)
+        "plain_ms": main_plain_ms}, {
+        "name": "verify_packed3", "route": "cuda",
+        "source": "defuse_tpu_torch/csrc/verify.cu",
+        "replaces": "defuse_tpu/ops/verify_batch.py:86",
+        "launches": verify_launches["verify_packed3"],
+        "max_abs_err": err_verify, "ms": verify_ms,
+        "plain_ms": verify_plain_ms}, {
+        "name": "issue_probe", "route": "cuda",
+        "source": "defuse_tpu_torch/csrc/issue_probe.cu",
+        "replaces": "defuse_tpu/ops/split_dp_census.py:143",
+        "launches": probe_launches["issue_probe"],
+        "max_abs_err": err_probe, "ms": probe_ms,
+        "plain_ms": probe_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,18 @@
-"""The state the screen carries across from the JAX package.
+"""The state the kernels carry across from the JAX package.
 
-The split-read screen has no learned weights: its state is its operand
-set, the numpy arrays that ``defuse_tpu``'s ``screen_candidates_pallas``
-takes.  ``screen_operands`` checks them on the host (the kernel trusts
-indices and lengths) and returns contiguous tensors in the kernel's
-dtypes.  Flank columns past every flank length are dropped, as the Pallas
-wrapper's static tightening does: they never reach a valid DP column, and
-the kernel's per-lane register width follows the table width.
+The device stages have no learned weights: their state is their operand
+sets, the numpy arrays that ``defuse_tpu``'s device calls take.
+
+* ``screen_operands``: the split-read screen's (``screen_candidates_pallas``
+  takes them).  Flank columns past every flank length are dropped, as the
+  Pallas wrapper's static tightening does: they never reach a valid DP
+  column, and the kernel's per-lane register width follows the table
+  width.
+* ``verify_plane`` / ``verify_operands``: the packed candidate
+  verification's (``DeviceVerifier`` builds them in ``defuse_tpu``).
+
+Each checks its arrays on the host (the kernels trust indices and
+lengths) and returns contiguous tensors in the kernel's dtypes.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ import numpy as np
 import torch
 
 from defuse_tpu.align.split_dp import accept_threshold
+
+from .ops.verify_batch import BASES_PER_WORD, pack_codes3, pack_rows3
+
+MAX_VERIFY_BASES = (1 << 31) * BASES_PER_WORD
 
 
 def screen_min_scores(read_lens) -> np.ndarray:
@@ -70,5 +80,56 @@ def screen_operands(u1p, u1l, u2rp, u2l, ref_idx, reads, read_lens,
     width = max(1, int(max(u1l.max(initial=0), u2l.max(initial=0))))
     arrays = (u1p[:, :width], u1l, u2rp[:, :width], u2l, ref_idx, reads,
               read_lens, min_scores)
+    return _tensors(arrays, device)
+
+
+def _tensors(arrays, device):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in arrays)
+
+
+def verify_plane(codes, device) -> torch.Tensor:
+    """The reference codes (0..4, N = 4) as the packed 3-bit plane, an
+    (ceil(N/10),) int32 tensor on ``device``.  Raises for references of
+    2^31 * 10 bases or more, whose word indices leave int32, as
+    ``defuse_tpu``'s verifier does."""
+    if len(codes) >= MAX_VERIFY_BASES:
+        raise NotImplementedError(
+            "3-bit packed verify addresses references < ~21 Gbp; shard the "
+            "reference across indices beyond that")
+    codes = np.asarray(codes)
+    _in_range("codes", codes, 0, 4)
+    return _tensors((pack_codes3(codes).view(np.int32),), device)[0]
+
+
+def verify_operands(codes, cand_pos, reads_codes, read_idx, read_lens,
+                    device, ref3=None):
+    """(ref3, word10, lane10, reads3, read_idx, read_lens): the operands of
+    ``ops.verify_cuda.verify_packed3`` on ``device``, all int32.
+
+    ``codes`` is the reference (``SeedIndex.codes``), ``cand_pos`` the
+    candidates' global starts, ``reads_codes`` (B, L) the reads' codes and
+    ``read_idx`` (C,) the read of each candidate.  Starts are clipped to
+    the reference (the caller drops out-of-bounds placements afterwards)
+    and split on the host into (start // 10, start % 10), so device
+    indices stay int32.  ``ref3`` passes a plane already on the device
+    (``verify_plane``); it is packed here when None.
+    """
+    if ref3 is None:
+        ref3 = verify_plane(codes, device)
+    reads_codes = np.asarray(reads_codes)
+    if reads_codes.ndim != 2:
+        raise ValueError(f"reads_codes: expected 2 dims, got "
+                         f"{reads_codes.shape}")
+    _in_range("reads_codes", reads_codes, 0, 4)
+    B = reads_codes.shape[0]
+    starts = np.clip(np.asarray(cand_pos, np.int64), 0,
+                     max(0, len(codes) - 1))
+    word10 = (starts // BASES_PER_WORD).astype(np.int32)
+    lane10 = (starts % BASES_PER_WORD).astype(np.int32)
+    read_idx = _int32("read_idx", read_idx, len(starts))
+    _in_range("read_idx", read_idx, 0, B - 1)
+    read_lens = _int32("read_lens", read_lens, B)
+    reads3 = pack_rows3(reads_codes).view(np.int32)
+    return (ref3,) + _tensors((word10, lane10, reads3, read_idx, read_lens),
+                              device)

@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and bind the hand-written CUDA kernels.
 
 ``nvcc`` compiles ``csrc/<name>.cu`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
@@ -27,16 +27,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+_BOUND: dict[str, ctypes.CDLL] = {}
+
+
+def find_cuda_tool(tool: str) -> str:
+    for cand in (os.environ.get("CUDA_HOME") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", tool),
+                 shutil.which(tool), f"/usr/local/cuda/bin/{tool}"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(f"{tool} not found (set CUDA_HOME or put it on PATH); "
+                       "the CUDA kernels are built from source at first use")
 
 
 def find_nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME") and
-                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels are built from source at first use")
+    return find_cuda_tool("nvcc")
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built ``csrc/<name>.cu`` library: the
+    machine code the card runs, for the census checks."""
+    path, _report = build(name)
+    proc = subprocess.run([find_cuda_tool("cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True)
+    return proc.stdout
 
 
 def library_path(name: str) -> pathlib.Path:
@@ -72,3 +86,39 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LOADED[name] = lib
         return lib
+
+
+def bind(name: str, sigs: dict) -> ctypes.CDLL:
+    """``load(name)`` with the argument types of each C entry in ``sigs``
+    set, once per process; every entry returns its launch's CUDA error
+    code as an int."""
+    lib = _BOUND.get(name)
+    if lib is None:
+        lib = load(name)
+        for fn_name, argtypes in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _BOUND[name] = lib
+    return lib
+
+
+def cuda_device(t, kernel: str):
+    """The CUDA device of ``t``; raises for any other device (a wrapper
+    takes the plain version only for CPU tensors)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} kernel needs CUDA tensors, got {t.device}")
+    return t.device
+
+
+def check_operand(name, t, dtype, ndim, device) -> None:
+    """Raise unless ``t`` has the dtype, rank and device a kernel takes and
+    is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

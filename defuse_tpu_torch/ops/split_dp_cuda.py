@@ -25,6 +25,7 @@ import torch
 from defuse_tpu.align.split_dp import GAP, MATCH, MIN_SPLIT_SCORE, MISMATCH
 
 from . import split_dp_batch
+from ._build import bind, check_operand, cuda_device
 
 MAX_COLS = 1024  # R+1 bound: 32 lanes x 32 columns in registers
 MAX_READ = 1024  # L bound: the per-warp shared-memory slots stay < 48 KB
@@ -45,33 +46,6 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _lib():
-    from ._build import load
-    lib = load("split_dp")
-    for name, argtypes in _SIGS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(name, t, dtype, ndim, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _cuda_device(t) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"split-DP kernel needs CUDA tensors, got {t.device}")
-    return t.device
-
-
 def _check_widths(R: int, L: int) -> None:
     if R + 1 > MAX_COLS:
         raise ValueError(f"flank width {R} exceeds the kernel's "
@@ -81,7 +55,7 @@ def _check_widths(R: int, L: int) -> None:
 
 
 def _launch(name: str, *args) -> None:
-    fn = getattr(_lib(), name)
+    fn = getattr(bind("split_dp", _SIGS), name)
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, MATCH, MISMATCH, GAP, MIN_SPLIT_SCORE, stream)
     if err != 0:
@@ -94,11 +68,11 @@ def dp_row_maxima_cuda(refs, ref_lens, reads, read_lens):
     ``split_dp_batch.dp_row_maxima``."""
     if refs.device.type == "cpu":
         return split_dp_batch.dp_row_maxima(refs, ref_lens, reads, read_lens)
-    dev = _cuda_device(refs)
-    _check("refs", refs, torch.uint8, 2, dev)
-    _check("ref_lens", ref_lens, torch.int32, 1, dev)
-    _check("reads", reads, torch.uint8, 2, dev)
-    _check("read_lens", read_lens, torch.int32, 1, dev)
+    dev = cuda_device(refs, "split-DP")
+    check_operand("refs", refs, torch.uint8, 2, dev)
+    check_operand("ref_lens", ref_lens, torch.int32, 1, dev)
+    check_operand("reads", reads, torch.uint8, 2, dev)
+    check_operand("read_lens", read_lens, torch.int32, 1, dev)
     B, R = refs.shape
     L = reads.shape[1]
     if reads.shape[0] != B or ref_lens.shape[0] != B \
@@ -128,13 +102,13 @@ def screen_candidates(uref1, ulen1, uref2r, ulen2, ref_idx, reads,
         return split_dp_batch.screen_candidates_ref(
             uref1, ulen1, uref2r, ulen2, ref_idx, reads, read_lens,
             min_scores)
-    dev = _cuda_device(reads)
-    _check("uref1", uref1, torch.uint8, 2, dev)
-    _check("uref2r", uref2r, torch.uint8, 2, dev)
-    _check("reads", reads, torch.uint8, 2, dev)
+    dev = cuda_device(reads, "split-DP")
+    check_operand("uref1", uref1, torch.uint8, 2, dev)
+    check_operand("uref2r", uref2r, torch.uint8, 2, dev)
+    check_operand("reads", reads, torch.uint8, 2, dev)
     for name, t in (("ulen1", ulen1), ("ulen2", ulen2), ("ref_idx", ref_idx),
                     ("read_lens", read_lens), ("min_scores", min_scores)):
-        _check(name, t, torch.int32, 1, dev)
+        check_operand(name, t, torch.int32, 1, dev)
     B, L = reads.shape
     U, R = uref1.shape
     if tuple(uref2r.shape) != (U, R) or ulen1.shape[0] != U \

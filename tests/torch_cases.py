@@ -36,6 +36,49 @@ def sweep_inputs(R, L, seed=7, B=16):
     return refs, rl, reads, ql
 
 
+def verify_case(seed=7, n_ref=5003, L=53, B=64, C=4096):
+    """Packed-verify inputs (codes, starts, reads, read_idx, read_lens):
+    codes 0..4 with N (4) runs on both sides of candidates, every lane,
+    candidates in the plane's last words (their windows run past the
+    reference, as out-of-bounds ones do before the caller drops them),
+    read lengths 0, 1, 9, 10, 11 and L, an all-N read, repeated reads."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 5, n_ref).astype(np.int8)
+    codes[100:140] = 4
+    reads = rng.integers(0, 5, (B, L)).astype(np.int8)
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    lens[:6] = (0, 1, 9, 10, 11, L)
+    reads[6, :] = 4
+    starts = rng.integers(0, n_ref, C).astype(np.int64)
+    starts[:10] = np.arange(10)                    # every lane
+    starts[10:20] = n_ref - 1 - np.arange(10)      # the last word(s)
+    starts[20:30] = 100 + np.arange(10)            # N on both sides
+    ridx = rng.integers(0, B, C).astype(np.int32)
+    ridx[:64] = np.arange(64) % 8                  # repeats
+    ridx[20:30] = 6
+    return codes, starts, reads, ridx, lens
+
+
+def frontend_config(ds, tmp, **overrides):
+    """A ``Config`` naming the references of the synthetic dataset ``ds``,
+    written under ``tmp``: its genome, its gene models and its transcripts
+    (each with a 50 A tail, as the frontend tests build them).  The pair
+    SAM is written on every route, so runs can compare it."""
+    from defuse_tpu.config import Config
+    from defuse_tpu.io.fasta import write_fasta
+    from synthdata import write_genome_fasta, write_gtf
+    tmp.mkdir(parents=True, exist_ok=True)
+    write_gtf(ds, tmp / "genes.gtf")
+    write_genome_fasta(ds, tmp / "genome.fa")
+    write_fasta(str(tmp / "cdna.fa"),
+                {f"{g.name}|{g.transcript}": g.cdna(ds.genome) + "A" * 50
+                 for g in ds.genes})
+    values = dict(gene_models=tmp / "genes.gtf",
+                  genome_fasta=tmp / "genome.fa", cdna_fasta=tmp / "cdna.fa",
+                  pair_sam_checkpoint="eager")
+    return Config.defaults(**(values | overrides))
+
+
 def screen_case():
     """The candidate set of test_split_dp_pallas's screen test."""
     rng = random.Random(3)
