@@ -9,8 +9,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build: the native host library and the three CUDA kernels, from
    source (one ``nvcc`` each, all started together);
 3. kernel = plain version, exactly, in both launch modes over a sweep of
-   flank/read widths and edge rows, and timed at the discover path's
-   screen shape;
+   flank/read widths and edge rows and over the edge cases of
+   ``defuse_tpu_torch.utils.synth.EDGE_CASES`` (flank widths off the lane
+   grid, flanks far shorter than the table, lengths 0, 1,024-base reads
+   that match or mismatch everywhere: the int16 range), and timed at the
+   discover path's screen shape;
 4. scale: the screen over a tumour-library candidate set (1,048,576
    reads of 100 bp against 4,096 flank pairs up to 480 bp): kernel time,
    an exact check against the plain version on a 65,536-read subsample,
@@ -30,12 +33,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    verified by the kernel) and on the native route, artifacts
    byte-identical, the kernel's launches counted, both wall times;
 8. probe and roofline: each issue-probe mix = its plain version exactly;
-   the census of the probe's loops and of ``screen_kernel<C>``'s row loops
-   against the machine code (``cuobjdump -sass``), within 20% per class;
-   the screen's roofline, with the probe's launches counted.
+   the census of the probe's loops and of every row loop of the screen
+   kernels against the machine code (``cuobjdump -sass``), within 20% per
+   class; the screen's roofline (its time against the work-based bound
+   and against its own census), with the probe's launches counted.
 
-All kernel comparisons are exact (integer results; tolerance 0).  Prints a
-JSON line of per-kernel results, then ``{"ok": true, "device": ...}`` last.
+All kernel comparisons are exact (integer results; tolerance 0).  Each
+kernel's bound is the larger of its least bytes over the card's memory
+rate and its least operations at the probe's measured issue rates.  Prints
+a line of each kernel's time, launches and bound, a JSON line of
+per-kernel results, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from defuse_tpu_torch.utils.profiling import cuda_time_ms as time_ms
 
 REPO = pathlib.Path(__file__).resolve().parent
 OUT = REPO / "build" / "smoke"  # SASS dumps and roofline.json
-sys.path.insert(1, str(REPO / "tests"))  # torch_cases: inputs shared with tests
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 # discover path's screen shape on the bench dataset: 46,953 candidate
@@ -79,6 +86,18 @@ def timed_build(name):
     return time.time() - t0, report
 
 
+def kernel_registers(report):
+    """``kernel<template arguments> registers`` of each entry function in
+    a ``ptxas -v`` report."""
+    import re
+    found = re.findall(
+        r"Compiling entry function '\S*?\d+([a-z_]+_kernel)(?:I(\w*?)E)?E\S*' "
+        r"for[^\n]*\n[^\n]*\n[^\n]*\n[^\n]*Used (\d+) registers", report)
+    return "; ".join(
+        f"{k}<{', '.join(re.findall(r'Li(\d+)', args or ''))}> {regs}"
+        for k, args, regs in found)
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -86,6 +105,15 @@ def check(cond, msg):
 
 def say(card, msg):
     print(f"[{card}] {msg}", flush=True)
+
+
+def check_no_reference_modules():
+    """The port runs on its own: neither ``jax`` nor the JAX package nor
+    the repository's bench and test helpers were imported."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "defuse_tpu", "bench",
+                                        "synthdata", "torch_cases"))
+    check(not bad, f"imported {bad}")
 
 
 def random_codes(rng, shape, lens):
@@ -153,6 +181,7 @@ def phase_kernel_equals_plain(card, dev, rng):
                                                      screen_candidates_ref)
     from defuse_tpu_torch.ops.split_dp_cuda import (dp_row_maxima_cuda,
                                                     screen_candidates)
+    from defuse_tpu_torch.utils.synth import EDGE_CASES, edge_case
     err_rowmax = err_screen = 0
     shapes = ((60, 24), (90, 24), (100, 24), (130, 64), (128, 64),
               (257, 64), (384, 64), (512, 128))
@@ -172,6 +201,20 @@ def phase_kernel_equals_plain(card, dev, rng):
         check(e == 0, f"screen kernel differs from plain at R={R} L={L}")
         check(int((want > 0).sum()) > 0, f"no survivor at R={R} L={L}")
     say(card, f"kernel == plain (exact) in both modes at (R, L) = {shapes}")
+    for name in sorted(EDGE_CASES):
+        rowmax_in, screen_in = edge_case(name)
+        ts = [torch.from_numpy(a).to(dev) for a in rowmax_in]
+        e = int((dp_row_maxima_cuda(*ts) - dp_row_maxima(*ts)).abs().max())
+        err_rowmax = max(err_rowmax, e)
+        check(e == 0, f"rowmax kernel differs from plain on {name}")
+        ops = screen_operands(*screen_in, dev)
+        want = screen_candidates_ref(*ops)
+        e = int((screen_candidates(*ops) - want).abs().max())
+        err_screen = max(err_screen, e)
+        check(e == 0, f"screen kernel differs from plain on {name}")
+        check(int(want.max()) > 0, f"no survivor on {name}")
+    say(card, "kernel == plain (exact) in both modes on the edge cases "
+              f"{sorted(EDGE_CASES)}")
     return err_rowmax, err_screen
 
 
@@ -213,8 +256,10 @@ def screen_set(rng, B, U, R, L, read_len, max_flank, min_flank):
 def timed_screen(card, ops, true_mask, label, sub):
     """Kernel vs plain on the card: exact over the first ``sub``
     candidates, survivors == the planted junction reads, both timed.
-    Returns (kernel ms for all, plain ms for ``sub``, max abs error)."""
+    Returns (kernel ms for all, plain ms for ``sub``, max abs error, the
+    screen's work: DP cells and least bytes)."""
     from defuse_tpu_torch.ops.split_dp_batch import screen_candidates_ref
+    from defuse_tpu_torch.ops.split_dp_census import screen_cells
     from defuse_tpu_torch.ops.split_dp_cuda import screen_candidates
     B = ops[5].shape[0]
     kernel_ms = time_ms(lambda: screen_candidates(*ops), 10)
@@ -235,7 +280,10 @@ def timed_screen(card, ops, true_mask, label, sub):
           f"{int((survivors != true_mask).sum())})")
     say(card, f"{label}: survivors == {int(true_mask.sum())} planted "
               "junction reads")
-    return kernel_ms, plain_ms, err
+    work = {"candidates": B, "cells": screen_cells(ops[1], ops[3], ops[4],
+                                                   ops[6]),
+            "bytes": sum(t.numel() * t.element_size() for t in ops) + 4 * B}
+    return kernel_ms, plain_ms, err, work
 
 
 def phase_main_shape(card, dev, rng):
@@ -275,17 +323,17 @@ ARTIFACTS = ("clusters", "clusters.sc", "clusters.sc.regions",
 
 
 def bench_dataset(card, work):
-    import bench
+    from defuse_tpu_torch.utils import synth
     t0 = time.time()
-    ds, paths, n_pairs = bench.build_dataset(work)
+    ds, paths, n_pairs = synth.build_dataset(work)
     say(card, f"bench dataset: {n_pairs} read pairs in "
               f"{time.time() - t0:.2f} s")
     return ds, paths, n_pairs
 
 
 def phase_end_to_end(card, work, dataset):
-    import bench
     from defuse_tpu_torch.ops import split_dp_cuda
+    from defuse_tpu_torch.utils import synth
     from defuse_tpu_torch.pipeline.discover import discover_fusions
 
     _ds, paths, n_pairs = dataset
@@ -293,9 +341,9 @@ def phase_end_to_end(card, work, dataset):
               improper=str(paths["improper"]),
               fastq1=str(paths["fastq1"]), fastq2=str(paths["fastq2"]),
               reference=str(paths["reference"]), exons=str(paths["exons"]),
-              fragment_mean=bench.MEAN, fragment_stddev=bench.STD,
-              precision=bench.PREC, min_cluster_size=bench.MINCL,
-              min_read_length=bench.MINREAD, max_read_length=bench.MAXREAD)
+              fragment_mean=synth.MEAN, fragment_stddev=synth.STD,
+              precision=synth.PREC, min_cluster_size=synth.MINCL,
+              min_read_length=synth.MINREAD, max_read_length=synth.MAXREAD)
     t0 = time.time()
     discover_fusions(outdir=str(work / "host"), use_device=False, **kw)
     t_host = time.time() - t0
@@ -316,7 +364,7 @@ def phase_end_to_end(card, work, dataset):
     check(counters.get("split_dp_impl") == "cuda",
           f"split_dp_impl is {counters.get('split_dp_impl')!r}")
     check(launches["split_dp_screen"] > 0, "screen kernel never launched")
-    check("jax" not in sys.modules, "jax was imported")
+    check_no_reference_modules()
     check(len((work / "port" / "splitreads.seq").read_bytes()) > 0,
           "no fusion sequences produced")
     stages = " ".join(f"{s['stage'].removeprefix('discover:')}="
@@ -341,7 +389,7 @@ def phase_verify(card, dev, rng):
     from defuse_tpu_torch.convert import verify_operands
     from defuse_tpu_torch.ops.verify_batch import verify_packed3_ref
     from defuse_tpu_torch.ops.verify_cuda import verify_packed3
-    from torch_cases import verify_case
+    from defuse_tpu_torch.utils.synth import verify_case
 
     codes, starts, reads, ridx, lens = verify_case(int(rng.integers(1 << 30)))
     ops = verify_operands(codes, starts, reads, ridx, lens, dev)
@@ -383,7 +431,12 @@ def phase_verify(card, dev, rng):
                   f"{t_small:.3f} ms for {VERIFY_BATCHES[0]}; marginal "
                   f"{1e3 / marginal:.0f} candidates/s "
                   f"({VERIFY_READ * 1e3 / marginal:.0f} bases/s)")
-    return max(err, e), times["kernel", C], times["plain", C]
+    # least bytes: every operand read once (the plane, the reads, 12 B of
+    # indices a candidate), 4 B a candidate written
+    work = {"candidates": C, "words": C * reads3.shape[1],
+            "bytes": sum(t.numel() * t.element_size() for t in full[:6])
+            + 4 * C}
+    return max(err, e), times["kernel", C], times["plain", C], work
 
 
 # --- phase 7 ----------------------------------------------------------------
@@ -410,7 +463,7 @@ def phase_frontend(card, work, dataset):
 
     from defuse_tpu_torch.align.frontend import align_reads
     from defuse_tpu_torch.ops import verify_cuda
-    from torch_cases import frontend_config
+    from defuse_tpu_torch.utils.synth import frontend_config
 
     ds, paths, n_pairs = dataset
     config = frontend_config(ds, work / "refs")
@@ -440,7 +493,7 @@ def phase_frontend(card, work, dataset):
     check(len(a["improper"]) > 0 and len(a["spanning"]) > 0,
           "frontend wrote no discordant alignments")
     check(launches["verify_packed3"] > 0, "verify kernel never launched")
-    check("jax" not in sys.modules, "jax was imported")
+    check_no_reference_modules()
     say(card, f"frontend on {n_pairs} pairs: forced device verify "
               f"{t_device:.3f} s ({n_pairs / t_device:.0f} pairs/s), native "
               f"route {t_native:.3f} s ({n_pairs / t_native:.0f} pairs/s); "
@@ -477,8 +530,10 @@ def phase_probe_equals_plain(card, dev):
             lambda: sc.issue_probe_ref(seed, PROBE_CHECK_ITERS, mix), 1)
     say(card, f"issue probe == plain (exact) for mixes {sc.MIXES}, "
               f"{seed.shape[0]} threads x {PROBE_CHECK_ITERS} steps: kernel "
-              f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (four mixes)")
-    return err, kernel_ms, plain_ms
+              f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (all mixes)")
+    work = {"warps": seed.shape[0] // sc.WARP, "steps": PROBE_CHECK_ITERS,
+            "bytes": 2 * len(sc.MIXES) * seed.numel() * seed.element_size()}
+    return err, kernel_ms, plain_ms, work
 
 
 def phase_sass(card):
@@ -500,23 +555,36 @@ def phase_sass(card):
                 sc.census_mismatches(want, lp["counts"])]
     text = _build.sass("split_dp")
     (OUT / "split_dp.sass").write_text(text)
+    lib = _build.load("split_dp")
+    for R in (1, 127, 128, 287, 288, 511, 512, 1023, 1024):
+        check(lib.split_dp_lanes(R) == sc.shape_for(R)[0],
+              f"split_dp_lanes({R}) differs from the census's shape_for")
     rows = sc.screen_row_loops(text)
-    for C in (4, 8, 16, 32):
-        # one row loop per DP direction, forward first
-        check(len(rows.get(C, ())) == 2,
-              f"screen_kernel<{C}>: {len(rows.get(C, ()))} row loops, "
-              "expected one per DP")
-        for direction, lp in zip(("forward", "reversed"), rows[C]):
-            want = sc.row_census(C, direction == "reversed")["total"]
-            say(card, f"SASS screen_kernel<{C}> {direction} row loop, per "
-                      f"row ({lp['rows_per_trip']} per trip): "
-                      f"{class_row(lp['per_row'])}; census "
-                      f"{class_row(want)}; opcodes {lp['opcodes']}")
-            bad += [f"screen<{C}> {direction} {m}" for m in
-                    sc.census_mismatches(want, lp["per_row"])]
+    shapes = sorted({sc.shape_for(R) for R in range(1, 1024)})
+    check(sorted(rows) == shapes,
+          f"screen kernels in the SASS {sorted(rows)}, expected {shapes}")
+    for lanes, cmax in shapes:
+        # one row loop per column count of the kernel's switch
+        found = rows[lanes, cmax]
+        check(sorted(found) == list(range(1, cmax + 1)),
+              f"screen_kernel<{cmax}, {lanes}>: row loops for C = "
+              f"{sorted(found)}, expected 1..{cmax}")
+        for C, lp in sorted(found.items()):
+            want = sc.row_census(C, lanes, cmax)["total"]
+            flush = sc.flush_census(lanes)["static"]
+            want = {k: want[k] + flush[k] for k in sc.CLASSES}
+            miss = sc.census_mismatches(want, lp["per_row"])
+            bad += [f"screen<{cmax}, {lanes}> C={C} {m}" for m in miss]
+            if miss or C in (1, cmax):
+                say(card, f"SASS screen_kernel<{cmax}, {lanes}> C={C} row "
+                          f"loop ({lp['rows_per_trip']} row per trip, "
+                          f"{lp['nested']} nested): "
+                          f"{class_row(lp['per_row'])}; census (row + the "
+                          f"flush's static part) {class_row(want)}; "
+                          f"opcodes {lp['opcodes']}")
     check(not bad, "census differs from the machine code by more than "
                    f"{sc.TOLERANCE:.0%}: " + "; ".join(bad))
-    say(card, "census within 20% of the SASS in every class")
+    say(card, "census within 20% of the SASS in every class of every loop")
 
 
 def phase_roofline(card, dev):
@@ -540,25 +608,39 @@ def phase_roofline(card, dev):
                   f"{probe['iters']} steps), {m['warp_instr_per_ns']:.2f} "
                   f"warp instr/ns = {m['warp_instr_per_ns'] * 1e3 / mhz / sms:.3f}"
                   f" per SM per clock")
-    cost = roof["ns_per_warp_instr"]
-    say(card, "cost per warp instruction (card-wide ns): " + " ".join(
-        f"{k}={v:.3e} ({1e3 / v / mhz / sms:.3f}/SM/clk)"
-        for k, v in cost.items()))
+    for label, cost in (("32-bit", probe["ns_per_warp_instr"]),
+                        ("16x2", probe["ns_per_warp_instr_16x2"])):
+        say(card, f"cost per warp instruction, {label} (card-wide ns): " +
+            " ".join(f"{k}={v:.3e} ({1e3 / v / mhz / sms:.3f}/SM/clk)"
+                     for k, v in cost.items()))
     say(card, f"clocks.sm, clocks.max.sm after the probe: {clocks}; "
               f"{sms} SMs")
     census = roof["census"]
     say(card, f"screen roofline (R={roof['R']}, L={roof['L']}, "
               f"{roof['read_len']} bp, B={roof['batches']}, "
               f"{roof['batch_ms']} ms): measured "
-              f"{roof['measured_us_per_read']:.5f} us/candidate, ceiling "
+              f"{roof['measured_us_per_read']:.5f} us/candidate; bound "
+              f"{roof['bound_us_per_read']:.5f} us/candidate "
+              f"({roof['cells_per_read']} cells, two to a register; "
+              f"{roof['bound32_us_per_read']:.5f} in int32): "
+              f"{roof['pct_of_bound']:.1f}% of bound; census ceiling "
               f"{roof['ceiling_us_per_read']:.5f} us/candidate, "
               f"{roof['pct_of_ceiling']:.1f}% of ceiling; census per "
               f"candidate {census['per_candidate']} "
-              f"(C={census['cols_per_lane']}, {census['rows']} rows)")
+              f"({census['lanes']} lanes, C={census['cols_per_lane']}, "
+              f"{census['rows']} rows)")
     say(card, f"probe launches {launches}")
     (OUT / "roofline.json").write_text(
         json.dumps(roof, indent=1))
-    return launches
+    return launches, probe
+
+
+def bound(work_bytes, ops_ms):
+    """(bound ms, what bounds): the larger of the least bytes over the
+    card's memory rate and the least operations' time."""
+    bytes_ms = work_bytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
 
 
 def main() -> int:
@@ -587,20 +669,18 @@ def main() -> int:
         t_native = time.time() - t0
         for name, fut in builds.items():
             seconds, report = fut.result()
-            regs = [ln.strip() for ln in report.splitlines()
-                    if "registers" in ln]
-            say(card, f"build: {name}.cu {seconds:.1f} s; ptxas: "
-                      f"{'; '.join(regs) or 'cached'}")
+            say(card, f"build: {name}.cu {seconds:.1f} s; registers: "
+                      f"{kernel_registers(report) or 'cached'}")
     say(card, f"build: native library {t_native:.1f} s, all "
               f"{time.time() - t0:.1f} s")
 
     rng = np.random.default_rng(2024)
     # --- phase 3: kernel == plain ----------------------------------------
     err_rowmax, err_screen = phase_kernel_equals_plain(card, dev, rng)
-    main_ms, main_plain_ms, e = phase_main_shape(card, dev, rng)
+    main_ms, main_plain_ms, e, main_work = phase_main_shape(card, dev, rng)
     err_screen = max(err_screen, e)
     # --- phase 4: scale --------------------------------------------------
-    _ms, _plain, e = phase_scale(card, dev, rng)
+    scale_ms, _plain, e, scale_work = phase_scale(card, dev, rng)
     err_screen = max(err_screen, e)
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as work:
@@ -609,35 +689,67 @@ def main() -> int:
         # --- phase 5: end to end -----------------------------------------
         screen_launches = phase_end_to_end(card, work, dataset)
         # --- phase 6: verify kernel == plain -----------------------------
-        err_verify, verify_ms, verify_plain_ms = phase_verify(card, dev, rng)
+        err_verify, verify_ms, verify_plain_ms, verify_work = \
+            phase_verify(card, dev, rng)
         # --- phase 7: frontend -------------------------------------------
         verify_launches = phase_frontend(card, work, dataset)
     # --- phase 8: probe and roofline -------------------------------------
-    err_probe, probe_ms, probe_plain_ms = phase_probe_equals_plain(card, dev)
+    err_probe, probe_ms, probe_plain_ms, probe_work = \
+        phase_probe_equals_plain(card, dev)
     phase_sass(card)
-    probe_launches = phase_roofline(card, dev)
+    probe_launches, probe = phase_roofline(card, dev)
+
+    # --- bounds: least bytes at the memory rate, least operations at the
+    # probe's issue rates, whichever is larger --------------------------
+    from defuse_tpu_torch.ops import split_dp_census as sc
+    from defuse_tpu_torch.ops.verify_cuda import OPS_PER_WORD
+    cost, cost16 = probe["ns_per_warp_instr"], probe["ns_per_warp_instr_16x2"]
+    screen_bound, screen_by = bound(
+        main_work["bytes"], sc.screen_bound_ms(main_work["cells"], cost16))
+    scale_bound, _by = bound(
+        scale_work["bytes"], sc.screen_bound_ms(scale_work["cells"], cost16))
+    verify_bound, verify_by = bound(
+        verify_work["bytes"],
+        verify_work["words"] * OPS_PER_WORD / sc.WARP * cost["alu"] / 1e6)
+    mix_ns = {"alu16": cost16["alu"], "dpx16": cost16["dpx"]}
+    probe_bound, probe_by = bound(probe_work["bytes"], sum(
+        probe_work["warps"] * probe_work["steps"] * n * mix_ns.get(
+            mix, cost[k]) for mix in sc.MIXES
+        for k, n in sc.MIX_STEP[mix].items()) / 1e6)
 
     say(card, f"rowmax entry (dp_row_maxima_cuda, off the discover path): "
               f"max_abs_err {err_rowmax}")
-    print(json.dumps({"kernels": [{
+    say(card, f"screen at scale: {scale_ms:.3f} ms, bound {scale_bound:.3f} "
+              f"ms ({100 * scale_bound / scale_ms:.1f}% of bound, "
+              f"{scale_work['cells']} cells)")
+    kernels = [{
         "name": "split_dp_screen", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/split_dp.cu",
         "replaces": "defuse_tpu/ops/split_dp_pallas.py:222",
         "launches": screen_launches["split_dp_screen"],
         "max_abs_err": err_screen, "ms": main_ms,
-        "plain_ms": main_plain_ms}, {
+        "plain_ms": main_plain_ms, "bound_ms": screen_bound,
+        "bound_by": screen_by, "library_ms": None}, {
         "name": "verify_packed3", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/verify.cu",
         "replaces": "defuse_tpu/ops/verify_batch.py:86",
         "launches": verify_launches["verify_packed3"],
         "max_abs_err": err_verify, "ms": verify_ms,
-        "plain_ms": verify_plain_ms}, {
+        "plain_ms": verify_plain_ms, "bound_ms": verify_bound,
+        "bound_by": verify_by, "library_ms": None}, {
         "name": "issue_probe", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/issue_probe.cu",
         "replaces": "defuse_tpu/ops/split_dp_census.py:143",
         "launches": probe_launches["issue_probe"],
         "max_abs_err": err_probe, "ms": probe_ms,
-        "plain_ms": probe_plain_ms}]}), flush=True)
+        "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
+        "bound_by": probe_by, "library_ms": None}]
+    say(card, "kernels at the main path's shapes (no PyTorch call computes "
+              "any of the three functions): " + "; ".join(
+                  f"{k['name']} {k['ms']:.4f} ms, {k['launches']} launches, "
+                  f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+                  f"({100 * k['bound_ms'] / k['ms']:.1f}%)" for k in kernels))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

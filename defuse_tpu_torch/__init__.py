@@ -2,9 +2,10 @@
 
 The JAX package ``defuse_tpu`` stays the reference.  This package holds
 the device-facing layers in PyTorch, with every TPU kernel on its path
-rewritten as a hand-written CUDA kernel (``csrc/``), and imports the
-JAX-free host layer (native C++ library, io, host-side cluster/align code)
-from ``defuse_tpu`` rather than copying it.  It never imports ``jax``.
+rewritten as a hand-written CUDA kernel (``csrc/``), and its own copy of
+the host layer (io, host-side cluster/align code, the ``ctypes`` loader of
+the native C++ library under ``native/``).  It imports ``torch``, never
+``jax`` and nothing of ``defuse_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from defuse_tpu.align.split_dp import accept_threshold
+from .align.split_dp import accept_threshold
 
 from .ops.verify_batch import BASES_PER_WORD, pack_codes3, pack_rows3
 

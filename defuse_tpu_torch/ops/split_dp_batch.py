@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from defuse_tpu.align.split_dp import GAP, MATCH, MIN_SPLIT_SCORE, MISMATCH
+from ..align.split_dp import GAP, MATCH, MIN_SPLIT_SCORE, MISMATCH
 
 NEG = -(1 << 30)
 

@@ -1,25 +1,30 @@
 """Instruction census of the CUDA screen, the measured issue rate of the
-card, and the screen's roofline.
+card, the screen's bound and its roofline.
 
 Counterpart of ``defuse_tpu/ops/split_dp_census.py``, whose vreg census
 and VPU probe price the TPU kernel.  Here:
 
+* ``screen_bound`` is the least time the card could take for a screen's
+  DP cells, from the operands alone: it does not depend on how the kernel
+  is written;
 * ``census_screen_ops`` counts the warp instructions one candidate costs
-  ``csrc/split_dp.cu::screen_kernel<C>``, by class, from the loop
-  structure of ``dp_instance`` and the combine loop;
+  ``csrc/split_dp.cu::screen_kernel<CMAX, LANES>``, by class, from the
+  loop structure of ``dp_rows`` and the combine loop;
 * ``issue_peak_probe`` measures what one warp instruction of each class
   costs on the card, with the kernel of ``csrc/issue_probe.cu`` (wrapper
   ``issue_probe``, plain version ``issue_probe_ref``);
-* ``screen_roofline`` prices the census at those costs and sets the
-  screen kernel's measured time against it;
+* ``screen_roofline`` prices the bound and the census at those costs and
+  sets the screen kernel's measured time against both;
 * ``sass_loops`` reads the loop bodies of the built kernels' machine code
   (``cuobjdump -sass``), so a census that no longer describes the
   compiled kernel is caught (``census_mismatches``).
 
-Classes: ``dpx`` is the Hopper DPX ``VIADDMNMX`` (``max(a + b, c)``),
-``shfl`` the warp shuffles, ``redux`` the warp reductions, and ``alu``
-every other integer instruction, vector or uniform (add, multiply-add,
-compare, select, min/max, logic, moves).
+Classes: ``dpx`` is the Hopper DPX family (``VIADDMNMX``: ``max(a + b,
+c)``; ``VIMNMX3``), ``shfl`` the warp shuffles, ``redux`` the warp
+reductions, and ``alu`` every other integer instruction, vector or uniform
+(add, multiply-add, compare, select, min/max, logic, moves).  The screen's
+row loop works on both int16 halves of its registers (``.S16x2``,
+``.U16x2``, ``.16x2``); the ``alu16`` and ``dpx16`` mixes price those.
 """
 
 from __future__ import annotations
@@ -33,14 +38,15 @@ import torch
 from ._build import bind, check_operand, cuda_device
 
 CLASSES = ("alu", "dpx", "shfl", "redux")
-MIXES = ("alu", "dpx", "shfl", "redux")
+MIXES = ("alu", "dpx", "shfl", "redux", "alu16", "dpx16")
 STREAMS = 4          # chains per thread in csrc/issue_probe.cu
 UNROLL = 16          # steps per trip of its rolled loop (kUnroll)
 PROBE_THREADS = 256  # threads per block (kThreads)
 RESIDENT_BLOCKS = 8  # blocks per SM: 2048 threads, the SM's maximum
 WARP = 32
-SCAN_STEPS = 5       # log2(WARP): the chunk-tail scan of dp_instance
+TILE_ROWS = 32       # rows between two flushes of dp_rows' row-max tile
 TOLERANCE = 0.2      # census vs SASS, per class (census_mismatches)
+HALF_MASK = 0x0FFF0FFF  # start bits of the 16x2 mixes' chains
 
 # warp instructions of one probe step (all STREAMS chains), by class
 MIX_STEP = {
@@ -49,6 +55,8 @@ MIX_STEP = {
     "shfl": {"shfl": STREAMS, "dpx": STREAMS},
     # the warp max lands in a uniform register: a move back, then the add
     "redux": {"redux": STREAMS, "alu": 2 * STREAMS},
+    "alu16": {"alu": 2 * STREAMS},             # VIMNMX.S16x2 + VIADD.16x2
+    "dpx16": {"dpx": STREAMS},                 # VIADDMNMX.S16x2
 }
 LOOP_CONTROL = {"alu": 2}  # counter add and compare, per trip
 
@@ -59,98 +67,161 @@ def reset_launches() -> None:
     LAUNCHES["issue_probe"] = 0
 
 
-def cols_per_lane(R: int) -> int:
-    """``split_dp_cols_per_lane``: the smallest C in {4, 8, 16, 32} with
-    32 * C >= R + 1, or 0 when R + 1 > 1024."""
-    for c in (4, 8, 16, 32):
-        if WARP * c >= R + 1:
-            return c
-    return 0
+# --- the bound ---------------------------------------------------------------
+
+# The least a DP cell costs, whatever the kernel: the substitution score,
+# one add, the row max (``alu``), and the two add-max of the recurrence
+# (``dpx``); values stay within +-2 * MAX_READ, so two cells fit one
+# register as int16x2.
+BOUND_INSTR_PER_CELL = {"alu": 3, "dpx": 2}
+CELLS_PER_LANE = 2
 
 
-# (C, reversed) row loops in which nvcc recomputes the column-valid tests
-# every row and saves them to a register (LOP3 column index, ISETP, P2R per
-# column), read from the SASS of screen_kernel<C> (nvcc 12.8, sm_90a); the
-# census-vs-SASS check in chip_smoke.py holds this table to the code
-PREDICATE_RECOMPUTE = {(16, True)}
+def screen_cells(ulen1, ulen2, ref_idx, read_lens) -> int:
+    """DP cells of a screen: for each candidate its read length times the
+    columns of both flanks, sum of 2 DPs of n * (ref_len + 1).  Takes the
+    operands of ``screen_candidates`` (tensors or arrays)."""
+    l1, l2, idx, n = (np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                      .astype(np.int64)
+                      for a in (ulen1, ulen2, ref_idx, read_lens))
+    return int((n * (l1[idx] + l2[idx] + 2)).sum())
 
 
-def row_census(C: int, reverse: bool = False) -> dict:
-    """Warp instructions of one DP row of ``dp_instance<C, REVERSE>``
-    (``split_dp.cu:66-100``), by class, itemized as nvcc compiles each
-    source operation for sm_90a.  The two directions run the same source
-    but for the read index (``read[n - j]`` or ``read[j - 1]``); nvcc
-    compiles one of them with the column tests recomputed every row
-    (``PREDICATE_RECOMPUTE``)."""
-    items = {
-        # read character index
-        "read_index": {"alu": 1},
-        # previous row's last column from the lane to the left
-        "diagonal": {"shfl": 1},
-        # per column: rc == ch compare, select MATCH/MISMATCH, prev + GAP,
-        # then max(diag + sub, ...) as one VIADDMNMX
-        "vertical": {"alu": 3 * C, "dpx": C},
-        # lane 0's boundary column GAP * j: multiply, select
-        "boundary": {"alu": 2},
-        # serial gap chain over columns 1..C-1: add, then VIMNMX (nvcc
-        # keeps this dependent chain as two instructions)
-        "horizontal": {"alu": 2 * (C - 1)},
-        # 5-step log-scan of chunk tails: shuffle, then add, compare
-        # (lane >= d and the max) and select
-        "scan": {"shfl": SCAN_STEPS, "alu": 3 * SCAN_STEPS},
-        # carry into the chunk: shuffle, add, select for lane 0
-        "carry": {"shfl": 1, "alu": 2},
-        # max(prev, carry + GAP * c) as one VIADDMNMX per column
-        "carry_in": {"dpx": C},
-        # row max over valid columns: compare column <= ref_len, compare
-        # with the running best, select; per column
-        "row_max": {"alu": 3 * C},
-        # warp max, then the MIN_SPLIT_SCORE threshold: compare, select
-        "reduce": {"redux": 1, "alu": 2},
-        # row counter: add, compare
-        "loop": {"alu": 2},
-        # what nvcc adds in every row loop: the warp max moved out of its
-        # uniform register, lane-bit tests, a predicate save, the shuffle
-        # mask, pointer steps
-        "moves": {"alu": 8},
-    }
-    if (C, reverse) in PREDICATE_RECOMPUTE:
-        items["column_tests"] = {"alu": 3 * (C - 1)}
+def screen_bound_ms(cells: int, cost: dict, packed: bool = True) -> float:
+    """The least milliseconds the card could take for ``cells`` DP cells:
+    BOUND_INSTR_PER_CELL warp instructions per 32 lanes, two cells a lane
+    when ``packed``, priced at ``cost`` (card-wide ns per warp instruction
+    by class, from ``issue_peak_probe``)."""
+    per_warp_instr = WARP * (CELLS_PER_LANE if packed else 1)
+    ns = sum(n * cost[k] for k, n in BOUND_INSTR_PER_CELL.items())
+    return cells / per_warp_instr * ns / 1e6
+
+
+# --- the census --------------------------------------------------------------
+
+def shape_for(R: int) -> tuple[int, int]:
+    """``shape_for`` of ``csrc/split_dp.cu``: (lanes a candidate's group,
+    most columns a lane) of the screen kernel for flank tables of width R;
+    (0, 0) when R + 1 > 1024."""
+    need = R + 1
+    for lanes, cmax in ((8, 16), (16, 18), (32, 16), (32, 32)):
+        if need <= lanes * cmax:
+            return lanes, cmax
+    return 0, 0
+
+
+def cols_per_lane(ref_len: int, lanes: int) -> int:
+    """Columns a lane of a group of ``lanes`` that holds ``ref_len + 1``
+    DP columns."""
+    return max(1, -(-(ref_len + 1) // lanes))
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _total(items: dict) -> dict:
     total = dict.fromkeys(CLASSES, 0)
     for counts in items.values():
         for k, v in counts.items():
             total[k] += v
-    return {"items": items, "total": total}
+    return total
 
 
-def census_screen_ops(R: int, L: int, read_len: int) -> dict:
-    """Warp instructions per candidate of ``screen_kernel<C>`` at flank
-    width R (C = ``cols_per_lane(R)``), read width L and ``read_len``
-    bases, by class.
+# (lanes, most columns a lane, C): integer instructions nvcc adds to that
+# row loop beyond the itemized ones, where the kernel's largest column
+# counts leave it short of registers and it recomputes addresses and moves
+# values every row; read from the SASS of the screen kernels (nvcc 12.8,
+# sm_90a).  The census-vs-SASS check in chip_smoke.py holds this table to
+# the code.
+RECOMPUTED = {(8, 16, 16): 12, (16, 18, 15): 15, (32, 16, 15): 12,
+              (32, 16, 16): 18}
 
-    Counted: both DPs' row loops, ``min(read_len, L)`` rows each (the
-    itemization of ``row_census``), and the combine loop
-    (``split_dp.cu:165-169``: ceil((n+1)/32) trips of an add, the
-    threshold compare, a max, and the loop's add and compare; then one
-    warp max).  Left out: memory instructions (the shared-memory loads
-    of the read character and stores of ``rm[j]``, the combine loop's two
-    loads), branches and convergence barriers, and the once-per-candidate
-    set-up (read staging, flank loads into registers, index arithmetic,
-    the output store).
+
+def row_census(C: int, lanes: int = WARP, cmax: int | None = None) -> dict:
+    """Warp instructions of one DP row of ``dp_rows<C, LANES>`` by class,
+    itemized as nvcc compiles each source operation for sm_90a, in the
+    screen kernel built for up to ``cmax`` columns a lane (``RECOMPUTED``
+    applies when it is given).  Memory instructions (the row's read
+    characters, the tile store) and branches are left out."""
+    steps = _log2(lanes)
+    items = {
+        # pointer step of the row's read characters
+        "read_char": {"alu": 1},
+        # per column: the substitution test (VIADDMNMX.U16x2), diag + miss
+        # (VIADD.16x2), min(. - 6, up) (VIADDMNMX.S16x2)
+        "vertical": {"dpx": 2 * C, "alu": C},
+        # the lane's min: VIMNMX3 over column pairs, a VIMNMX for the odd one
+        "lane_min": {"dpx": (C - 1) // 2, "alu": 1 if C % 2 == 0 else 0},
+        # min-scan across the group: shuffle and VIMNMX per step
+        "scan": {"shfl": steps, "alu": steps},
+        # carry into the lane: shuffle, select for the group's first lane
+        "carry": {"shfl": 1, "alu": 1},
+        # per column: running min (VIMNMX), row min of z + 2i (VIADDMNMX);
+        # the row min's start value
+        "running": {"alu": C + 1, "dpx": C},
+        # the lane's column term (VIADD.16x2), the tile pointer's step
+        "store": {"alu": 2},
+        # row counter and tile-row counter: add and compare each
+        "loop": {"alu": 4},
+        # what nvcc adds: the shuffles' mask in a uniform register, a move
+        "moves": {"alu": 2 + RECOMPUTED.get((lanes, cmax, C), 0)},
+    }
+    return {"items": items, "total": _total(items)}
+
+
+def flush_census(lanes: int, rows: int = TILE_ROWS) -> dict:
+    """Warp instructions of one flush of the row-max tile
+    (``reduce_tile<LANES>``) over ``rows`` rows: ``static`` is what stands
+    in the row loop around the reduction's own loop (kept rolled),
+    ``trip`` one trip of that loop (a lane reduces one row: LANES loads,
+    VIMNMX3 over pairs, a VIMNMX, back to two scores, two thresholds, the
+    store), ``total`` what a flush executes."""
+    static = {"alu": 6, "dpx": 0, "shfl": 0, "redux": 0}
+    trip = {"alu": 20, "dpx": lanes // 2 - 1, "shfl": 0, "redux": 0}
+    trips = -(-rows // lanes)
+    return {"static": static, "trip": trip, "trips": trips,
+            "total": {k: static[k] + trips * trip[k] for k in CLASSES}}
+
+
+def census_screen_ops(R: int, L: int, read_len: int,
+                      ref_len: int | None = None) -> dict:
+    """Warp instructions per candidate of the screen kernel at flank table
+    width R (which picks the lanes a group, ``shape_for``), read width L,
+    ``read_len`` bases and flanks of ``ref_len`` bases (R when None), by
+    class.  A warp runs 32 / lanes candidates at once, so a candidate is
+    charged that share of each warp instruction.
+
+    Counted: the row loop, ``min(read_len, L)`` rows (``row_census``); the
+    tile flushes (``flush_census``), one per TILE_ROWS rows and one for the
+    rest; the combine loop (ceil((n+1)/lanes) trips of an add, the
+    threshold compare, a max, and the loop's add and compare) and its
+    butterfly max (a shuffle and a max per step).  Left out: memory
+    instructions, branches and convergence barriers, and the
+    once-per-candidate set-up (read staging, flank loads into registers,
+    index arithmetic, the output store).
     """
-    C = cols_per_lane(R)
-    if C == 0:
+    lanes, cmax = shape_for(R)
+    if lanes == 0:
         raise ValueError(f"flank width {R} exceeds the kernel's 1023")
+    ref_len = R if ref_len is None else min(ref_len, R)
+    C = cols_per_lane(ref_len, lanes)
     n = max(0, min(read_len, L))
-    rows = {d: row_census(C, d == "reversed")["total"]
-            for d in ("forward", "reversed")}
-    combine_trips = -(-(n + 1) // WARP)
-    per_candidate = {k: n * (rows["forward"][k] + rows["reversed"][k])
-                     for k in CLASSES}
-    per_candidate["alu"] += 5 * combine_trips
-    per_candidate["redux"] += 1
-    return {"R": R, "L": L, "read_len": read_len, "cols_per_lane": C,
-            "rows": 2 * n, "per_row": rows, "per_candidate": per_candidate,
+    row = row_census(C, lanes, cmax)["total"]
+    per_warp = {k: n * row[k] for k in CLASSES}
+    full, rest = divmod(n, TILE_ROWS)
+    for rows, times in ((TILE_ROWS, full), (rest, 1 if rest else 0)):
+        flush = flush_census(lanes, rows)["total"]
+        for k in CLASSES:
+            per_warp[k] += times * flush[k]
+    per_warp["alu"] += 5 * -(-(n + 1) // lanes) + _log2(lanes)
+    per_warp["shfl"] += _log2(lanes)
+    share = WARP // lanes
+    per_candidate = {k: per_warp[k] / share for k in CLASSES}
+    return {"R": R, "L": L, "read_len": read_len, "ref_len": ref_len,
+            "lanes": lanes, "cols_per_lane": C, "rows": n,
+            "candidates_per_warp": share, "per_row": row,
+            "per_candidate": per_candidate,
             "warp_instructions_per_candidate": sum(per_candidate.values())}
 
 
@@ -168,7 +239,10 @@ def issue_probe_ref(seed, iters: int, mix: str):
     """Plain version of the probe: each thread's max over its STREAMS
     chains after ``iters`` steps of ``mix``, from ``seed[t] + s``.
     ``seed`` (N,) int32, N a multiple of 32 (threads in lane order)."""
-    a = seed.to(torch.int32)[:, None] + torch.arange(
+    start = seed.to(torch.int32)
+    if mix in ("alu16", "dpx16"):
+        return _probe16_ref(start & HALF_MASK, iters, mix)
+    a = start[:, None] + torch.arange(
         STREAMS, dtype=torch.int32, device=seed.device)
     lane = (torch.arange(seed.shape[0], device=seed.device) % WARP) \
         .to(torch.int32)[:, None]
@@ -196,6 +270,32 @@ def issue_probe_ref(seed, iters: int, mix: str):
 
 def _interleave(even, odd):
     return torch.stack([even, odd], dim=2).reshape(even.shape[0], -1)
+
+
+def _wrap16(v):
+    """Two's-complement wrap of int32 values into int16's range."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _probe16_ref(start, iters: int, mix: str):
+    """The 16x2 mixes: the ``alu`` and ``dpx`` steps on each int16 half
+    of the chains (wrapping, as ``VIADD.16x2`` does), from ``start + s``;
+    returns the int32 max of each thread's packed chains."""
+    a = start[:, None] + torch.arange(STREAMS, dtype=torch.int32,
+                                      device=start.device)
+    halves = [_wrap16(a & 0xFFFF), a >> 16]
+    for _ in range(iters):
+        for h, v in enumerate(halves):
+            x, y = v[:, 0::2], v[:, 1::2]
+            if mix == "alu16":
+                v = _interleave(torch.maximum(x, y) + 1,
+                                torch.minimum(x, y) + 2)
+            else:
+                v = _interleave(torch.maximum(_wrap16(x + 1), y),
+                                torch.maximum(_wrap16(y + 2), x))
+            halves[h] = _wrap16(v)
+    lo, hi = halves
+    return ((hi << 16) | (lo & 0xFFFF)).amax(dim=1)
 
 
 _SIGS = {"issue_probe": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -252,7 +352,10 @@ def issue_peak_probe(device="cuda") -> dict:
     their own mixes; ``shfl`` and ``redux`` from theirs after their dpx or
     alu share is taken out at the measured price (the reference's
     subtraction), but never below the cheaper of those two, one issue
-    slot.  Costs are card-wide nanoseconds per warp instruction."""
+    slot.  ``ns_per_warp_instr_16x2`` prices the same classes for code
+    that works on int16 halves: ``alu`` and ``dpx`` from the ``alu16`` and
+    ``dpx16`` mixes, shuffles and reductions as above.  Costs are
+    card-wide nanoseconds per warp instruction."""
     from ..core.devices import require_cuda
     from ..utils.profiling import cuda_time_ms
     dev = require_cuda(device)
@@ -285,6 +388,10 @@ def issue_peak_probe(device="cuda") -> dict:
     out["ns_per_warp_instr"] = {"alu": c_alu, "dpx": c_dpx,
                                 "shfl": max(c_shfl, floor),
                                 "redux": max(c_redux, floor)}
+    out["ns_per_warp_instr_16x2"] = dict(
+        out["ns_per_warp_instr"],
+        alu=step_ns["alu16"] / (warps * MIX_STEP["alu16"]["alu"]),
+        dpx=step_ns["dpx16"] / (warps * MIX_STEP["dpx16"]["dpx"]))
     return out
 
 
@@ -295,23 +402,11 @@ ROOF_BATCHES = (16_384, 65_536)
 ROOF_FLANKS = 4096
 
 
-def screen_roofline(device="cuda") -> dict:
-    """The screen kernel's marginal time per candidate against the census
-    priced at the probe's measured costs.
-
-    Shape of ``bench.py``'s split-DP microbench: flanks of R = 256 bases
-    (4,096 seeded ones, gathered by a seeded ``ref_idx``), reads of 50
-    random bases in an L = 64 matrix, B = 16,384 and 65,536 candidates;
-    the marginal between the two batches cancels launch costs.  The
-    ceiling adds the classes' costs (it assumes no two classes issue in
-    the same cycle); ``pct_of_ceiling`` is ceiling / measured."""
+def roofline_operands(device):
+    """The roofline shape's screen operands on ``device``: flanks of R = 256
+    bases (4,096 seeded ones, gathered by a seeded ``ref_idx``), reads of
+    50 random bases in an L = 64 matrix, 65,536 candidates."""
     from ..convert import screen_min_scores, screen_operands
-    from ..core.devices import require_cuda
-    from ..utils.profiling import cuda_time_ms
-    from .split_dp_cuda import screen_candidates
-    dev = require_cuda(device)
-    if dev.type != "cuda":
-        raise ValueError("the roofline measures a CUDA device")
     rng = np.random.default_rng(0)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     B = ROOF_BATCHES[-1]
@@ -320,9 +415,32 @@ def screen_roofline(device="cuda") -> dict:
     reads = np.zeros((B, ROOF_L), np.uint8)
     reads[:, :ROOF_READ] = acgt[rng.integers(0, 4, (B, ROOF_READ))]
     read_lens = np.full(B, ROOF_READ, np.int32)
-    ops = screen_operands(flanks[0], flank_lens, flanks[1], flank_lens,
-                          rng.integers(0, ROOF_FLANKS, B), reads, read_lens,
-                          screen_min_scores(read_lens), dev)
+    return screen_operands(flanks[0], flank_lens, flanks[1], flank_lens,
+                           rng.integers(0, ROOF_FLANKS, B), reads, read_lens,
+                           screen_min_scores(read_lens), device)
+
+
+def screen_roofline(device="cuda", probe: dict | None = None) -> dict:
+    """The screen kernel's marginal time per candidate against its bound
+    and against the census, both priced at the probe's measured costs.
+
+    Shape of ``bench.py``'s split-DP microbench (``roofline_operands``),
+    at B = 16,384 and 65,536 candidates; the marginal between the two
+    batches cancels launch costs.  ``bound_us_per_read`` is
+    ``screen_bound_ms`` of a candidate's cells (``pct_of_bound`` = bound /
+    measured; ``bound32_us_per_read`` the same without packing two cells
+    a register).  ``ceiling_us_per_read`` prices the kernel's own census
+    (it assumes no two classes issue in the same cycle; ``pct_of_ceiling``
+    = ceiling / measured): a diagnostic of how well the kernel's stream
+    issues, not of how short it is.  ``probe`` passes an
+    ``issue_peak_probe`` result taken earlier in the run."""
+    from ..core.devices import require_cuda
+    from ..utils.profiling import cuda_time_ms
+    from .split_dp_cuda import screen_candidates
+    dev = require_cuda(device)
+    if dev.type != "cuda":
+        raise ValueError("the roofline measures a CUDA device")
+    ops = roofline_operands(dev)
     times = []
     for b in ROOF_BATCHES:
         sub = ops[:4] + tuple(a[:b] for a in ops[4:])
@@ -330,13 +448,22 @@ def screen_roofline(device="cuda") -> dict:
     measured_us = (times[1] - times[0]) * 1e3 / \
         (ROOF_BATCHES[1] - ROOF_BATCHES[0])
     census = census_screen_ops(ROOF_R, ROOF_L, ROOF_READ)
-    probe = issue_peak_probe(dev)
-    cost = probe["ns_per_warp_instr"]
+    if probe is None:
+        probe = issue_peak_probe(dev)
+    cost = probe["ns_per_warp_instr_16x2"]
     ceiling_us = sum(census["per_candidate"][k] * cost[k]
                      for k in CLASSES) / 1e3
+    cells = 2 * ROOF_READ * (ROOF_R + 1)
+    bound_us = screen_bound_ms(cells, cost) * 1e3
+    bound32_us = screen_bound_ms(cells, probe["ns_per_warp_instr"],
+                                 packed=False) * 1e3
     return {"R": ROOF_R, "L": ROOF_L, "read_len": ROOF_READ,
             "batches": list(ROOF_BATCHES), "batch_ms": times,
             "measured_us_per_read": measured_us,
+            "cells_per_read": cells,
+            "bound_us_per_read": bound_us,
+            "bound32_us_per_read": bound32_us,
+            "pct_of_bound": 100.0 * bound_us / measured_us,
             "ceiling_us_per_read": ceiling_us,
             "pct_of_ceiling": 100.0 * ceiling_us / measured_us,
             "census": census, "ns_per_warp_instr": cost, "probe": probe}
@@ -373,12 +500,13 @@ def sass_class(opcode: str) -> str:
     return "alu"
 
 
-def sass_loops(text: str) -> dict:
-    """Innermost loops of each function in ``cuobjdump -sass`` output:
-    ``{function: [{"start", "end", "counts": {class: n}, "opcodes"}]}``
-    in address order.  A loop is the address range from a backward
-    branch's target to the branch; innermost means no other loop lies
-    inside it."""
+def sass_loops(text: str, innermost: bool = True) -> dict:
+    """Loops of each function in ``cuobjdump -sass`` output:
+    ``{function: [{"start", "end", "counts": {class: n}, "opcodes",
+    "nested"}]}`` in address order.  A loop is the address range from a
+    backward branch's target to the branch.  With ``innermost`` only the
+    loops that hold no other loop; else every loop, counted without the
+    instructions of the ``nested`` loops inside it."""
     funcs: dict[str, list] = {}
     name = None
     pending_labels: list[str] = []
@@ -403,7 +531,7 @@ def sass_loops(text: str) -> dict:
             funcs[name].append((addr, _GUARD.sub("", m.group(2))))
     out = {}
     for name, instrs in funcs.items():
-        loops = []
+        loops = set()
         for addr, ins in instrs:
             op = ins.split()[0]
             if op.split(".")[0] != "BRA":
@@ -414,41 +542,52 @@ def sass_loops(text: str) -> dict:
             t = targets[-1]
             dest = labels[name].get(t) if t.startswith(".L") else int(t, 16)
             if dest is not None and dest <= addr:
-                loops.append((dest, addr))
-        inner = [lp for lp in loops if not any(
-            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+                loops.add((dest, addr))
         found = []
-        for start, end in sorted(set(inner)):
+        for start, end in sorted(loops):
+            inside = [o for o in loops if o != (start, end)
+                      and start <= o[0] and o[1] <= end]
+            if innermost and inside:
+                continue
             counts = dict.fromkeys(CLASSES + ("mem", "control"), 0)
             opcodes: dict[str, int] = {}
             for addr, ins in instrs:
-                if start <= addr <= end:
+                if start <= addr <= end and not any(
+                        o[0] <= addr <= o[1] for o in inside):
                     op = ins.split()[0]
                     counts[sass_class(op)] += 1
                     opcodes[op.split(".")[0]] = \
                         opcodes.get(op.split(".")[0], 0) + 1
             found.append({"start": start, "end": end, "counts": counts,
-                          "opcodes": opcodes})
+                          "opcodes": opcodes, "nested": len(inside)})
         out[name] = found
     return out
 
 
 def screen_row_loops(text: str) -> dict:
-    """Per-row class counts of each ``screen_kernel<C>`` row loop (the
-    innermost loops holding a warp max, one per DP row), in address
-    order: ``{C: [{"rows_per_trip", "per_row": {class: n}, ...}]}``."""
-    out: dict[int, list] = {}
-    for name, loops in sass_loops(text).items():
-        m = re.search(r"screen_kernelILi(\d+)E", name)
+    """The row loops of each ``screen_kernel<CMAX, LANES>``, one per
+    column count C of its switch: ``{(lanes, cmax): {C: loop}}``.  A row
+    loop is a loop with warp shuffles outside its nested loops (the tile
+    flush's reduction); its ``per_row`` counts leave the nested loops
+    out.  The scan's shuffles (log2(lanes) + 1 a row) give the rows per
+    trip, and the three ``VIADDMNMX`` a column give C."""
+    out: dict[tuple, dict] = {}
+    for name, loops in sass_loops(text, innermost=False).items():
+        m = re.search(r"screen_kernelILi(\d+)ELi(\d+)E", name)
         if not m:
             continue
-        rows = []
+        cmax, lanes = int(m.group(1)), int(m.group(2))
+        rows = out.setdefault((lanes, cmax), {})
         for lp in loops:
-            per_trip = lp["counts"]["redux"]
-            if per_trip and lp["counts"]["shfl"]:
-                rows.append(dict(lp, rows_per_trip=per_trip, per_row={
-                    k: lp["counts"][k] / per_trip for k in CLASSES}))
-        out[int(m.group(1))] = rows
+            shfl = lp["counts"]["shfl"]
+            per_trip, odd = divmod(shfl, _log2(lanes) + 1)
+            if not shfl or odd:
+                continue
+            C, odd = divmod(lp["opcodes"].get("VIADDMNMX", 0), 3 * per_trip)
+            if odd or not C:
+                continue
+            rows[C] = dict(lp, rows_per_trip=per_trip, per_row={
+                k: lp["counts"][k] / per_trip for k in CLASSES})
     return out
 
 
@@ -456,7 +595,7 @@ def probe_loops(text: str) -> dict:
     """The rolled step loop of each probe mix: ``{mix: loop}``."""
     out = {}
     for name, loops in sass_loops(text).items():
-        m = re.search(r"probe_kernelILi(\d)E", name)
+        m = re.search(r"probe_kernelILi(\d+)E", name)
         if m and loops:
             out[MIXES[int(m.group(1))]] = max(
                 loops, key=lambda lp: sum(lp["counts"].values()))

@@ -7,8 +7,11 @@ Counterpart of ``defuse_tpu/ops/split_dp_pallas.py``.  Two entries:
 * ``screen_candidates`` — the fused candidate screen, like
   ``screen_candidates_pallas``: one launch gathers the flanks by
   ``ref_idx`` from the uint8 unique-flank tables, reverses each read by
-  index arithmetic, runs both DPs, combines, thresholds and writes only
-  the (B,) int32 max scores (0 = reject).
+  index arithmetic, runs both DPs side by side in the int16 halves of its
+  registers, combines, thresholds and writes only the (B,) int32 max
+  scores (0 = reject).  The table's width picks how many lanes a candidate
+  gets (``csrc/split_dp.cu::shape_for``); each warp takes the columns its
+  own flanks need.
 
 Inputs are uint8 character codes (0 = pad) and int32 lengths, indices
 and thresholds, contiguous.  A tensor on the CPU goes to the plain version
@@ -22,13 +25,13 @@ import ctypes
 
 import torch
 
-from defuse_tpu.align.split_dp import GAP, MATCH, MIN_SPLIT_SCORE, MISMATCH
+from ..align.split_dp import GAP, MATCH, MIN_SPLIT_SCORE, MISMATCH
 
 from . import split_dp_batch
 from ._build import bind, check_operand, cuda_device
 
 MAX_COLS = 1024  # R+1 bound: 32 lanes x 32 columns in registers
-MAX_READ = 1024  # L bound: the per-warp shared-memory slots stay < 48 KB
+MAX_READ = 1024  # L bound: DP values stay inside int16 (+-2 * MAX_READ * 3)
 
 LAUNCHES = {"split_dp_rowmax": 0, "split_dp_screen": 0}
 

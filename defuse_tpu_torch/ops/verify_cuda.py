@@ -21,6 +21,12 @@ from ._build import bind, check_operand, cuda_device
 
 LAUNCHES = {"verify_packed3": 0}
 
+# The least integer operations a window word of 10 bases costs, for the
+# kernel's bound: the two shifts and the OR that cut the window out of two
+# plane words, the mask, the XOR with the read word, the two shifts and two
+# ORs that fold each 3-bit group, the population count and the add.
+OPS_PER_WORD = 11
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {"verify_packed3": [_P, ctypes.c_longlong, _P, _P, _P, _I, _P, _P,

@@ -2,7 +2,7 @@
 
 Counterpart of ``defuse_tpu/pipeline/discover.py`` on its native path,
 with the same stages and byte-identical artifacts.  The host stages are
-the shared native library and host code of ``defuse_tpu``; the one device
+the native library and the port's own copy of the host code; the one device
 stage is the split-read DP screen, which runs as the CUDA kernel of
 ``ops/split_dp_cuda.py`` (``device="cuda"``) or, only when ``device="cpu"``
 is passed, as its plain PyTorch version.  The screen is exact: it drops
@@ -17,23 +17,21 @@ import pathlib
 
 import numpy as np
 
-from defuse_tpu.align.batch_realign import _pad_len
-from defuse_tpu.align.tasks import (SplitReadRealigner, create_tasks,
-                                    evaluate_file, read_align_region_pairs)
-from defuse_tpu.cluster import native
-from defuse_tpu.cluster.matepair_em import EMParams
-from defuse_tpu.cluster.setcover import run_setcover_file
-from defuse_tpu.core.exons import ExonRegions
-from defuse_tpu.io.fasta import FastaStore
-from defuse_tpu.utils import checks
-from defuse_tpu.utils.profiling import Tracer
-from defuse_tpu.pipeline.regions import align_regions_file
-
+from ..align.batch_realign import _pad_len
+from ..align.tasks import (SplitReadRealigner, create_tasks, evaluate_file,
+                           read_align_region_pairs)
+from ..cluster import native
+from ..cluster.matepair_em import EMParams
+from ..cluster.setcover import run_setcover_file
 from ..convert import screen_min_scores, screen_operands
 from ..core.devices import require_cuda
+from ..core.exons import ExonRegions
+from ..io.fasta import FastaStore
 from ..ops.split_dp_batch import pad_batch
 from ..ops.split_dp_cuda import screen_candidates
-from ..utils.profiling import device_trace
+from ..utils import checks
+from ..utils.profiling import Tracer, device_trace
+from .regions import align_regions_file
 
 
 def require_native() -> None:
@@ -88,7 +86,7 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     if gene_models is not None:
         # mitochondrial segregation runs before setcover
         # (defuse_run.pl:466-468)
-        from defuse_tpu.filters.cluster_filters import segregate_mitochondrial
+        from ..filters.cluster_filters import segregate_mitochondrial
         ref_store = FastaStore.from_file(reference)
         with open(clusters_path) as fh:
             lines = fh.readlines()
@@ -103,8 +101,7 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     _mark("setcover")
     checks.check_setcover_file(str(clusters_path), str(sc_path))
     if gene_models is not None:
-        from defuse_tpu.filters.cluster_filters import \
-            apply_post_setcover_filters
+        from ..filters.cluster_filters import apply_post_setcover_filters
         with open(sc_path) as fh:
             lines = fh.readlines()
         lines = apply_post_setcover_filters(

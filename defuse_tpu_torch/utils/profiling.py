@@ -1,18 +1,63 @@
-"""Kernel timing and opt-in device profiling for the port.
+"""Stage metrics, kernel timing and opt-in device profiling for the port.
 
-``device_trace`` is the counterpart of
-``defuse_tpu/utils/profiling.device_trace`` on ``torch.profiler``;
-``cuda_time_ms`` times a kernel by CUDA events.  Stage wall times and
-counters stay with the shared ``defuse_tpu.utils.profiling.Tracer``.
+``Tracer`` records stage wall times and counters into the run's metrics
+artifact (the port's copy of ``defuse_tpu/utils/profiling.Tracer``);
+``device_trace`` is the counterpart of that module's ``device_trace`` on
+``torch.profiler``; ``cuda_time_ms`` times a kernel by CUDA events.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import pathlib
+import time
 
 import torch
+
+
+class Tracer:
+    """Stage wall-clock + counter collector with a JSON artifact."""
+
+    def __init__(self, outdir: str | None = None,
+                 artifact: str = "metrics.json"):
+        self._t0 = time.time()
+        self._last = self._t0
+        self.stages: list[dict] = []
+        self.counters: dict[str, float] = {}
+        self._path = (pathlib.Path(outdir) / artifact) if outdir else None
+        self._echo = bool(os.environ.get("DEFUSE_STAGE_TIMING"))
+
+    def mark(self, stage: str, **extra) -> float:
+        """Close the current stage interval under ``stage``."""
+        now = time.time()
+        dt = now - self._last
+        self._last = now
+        rec = {"stage": stage, "seconds": round(dt, 4)}
+        if extra:
+            rec.update(extra)
+        self.stages.append(rec)
+        if self._echo:
+            print(f"[stage] {stage}: {dt:.2f}s", flush=True)
+        return dt
+
+    def count(self, name: str, value: float) -> None:
+        self.counters[name] = self.counters.get(name, 0) + value
+
+    def flush(self) -> str | None:
+        if self._path is None:
+            return None
+        self._path.parent.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "total_seconds": round(time.time() - self._t0, 4),
+            "stages": self.stages,
+            "counters": self.counters,
+        }
+        tmp = self._path.with_name(self._path.name + ".tmp")
+        tmp.write_text(json.dumps(payload, indent=1))
+        tmp.replace(self._path)
+        return str(self._path)
 
 
 def cuda_time_ms(fn, reps: int, graph: bool = False, rounds: int = 1) -> float:

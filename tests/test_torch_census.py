@@ -2,8 +2,8 @@
 version and the machine-code reader that holds the census to the built
 kernels (``defuse_tpu_torch/ops/split_dp_census.py``).
 
-The census is pinned per row for every column width C the screen kernel
-is compiled for, so a change to ``csrc/split_dp.cu`` that moves the
+The census is pinned per row for a sample of the column counts C the
+screen kernel is compiled for, so a change to ``csrc/split_dp.cu`` that moves the
 instruction mix shows here and in ``chip_smoke.py``'s census-vs-SASS
 check.  The probe's plain version is held to the closed form of each
 mix's chains."""
@@ -14,78 +14,121 @@ import torch
 
 from defuse_tpu_torch.ops import split_dp_census as sc
 
-# per-row warp instructions of dp_instance<C, REVERSE> by class
-# (alu, dpx, shfl, redux), forward and reversed read
-ROWS = {4: ((62, 8, 7, 1), (62, 8, 7, 1)),
-        8: ((94, 16, 7, 1), (94, 16, 7, 1)),
-        16: ((158, 32, 7, 1), (203, 32, 7, 1)),
-        32: ((286, 64, 7, 1), (286, 64, 7, 1))}
+# per-row warp instructions of dp_rows<C, LANES> by class (alu, dpx, shfl,
+# redux), in a group of 32 lanes and of 16
+ROWS = {4: ((25, 13, 6, 0), (24, 13, 5, 0)),
+        8: ((33, 27, 6, 0), (32, 27, 5, 0)),
+        16: ((49, 55, 6, 0), (48, 55, 5, 0)),
+        32: ((81, 111, 6, 0), (80, 111, 5, 0))}
 
 
 @pytest.mark.parametrize("C", sorted(ROWS))
 def test_row_census_pinned(C):
-    for reverse, want in zip((False, True), ROWS[C]):
-        total = sc.row_census(C, reverse)["total"]
+    for lanes, want in zip((32, 16), ROWS[C]):
+        total = sc.row_census(C, lanes)["total"]
         assert tuple(total[k] for k in sc.CLASSES) == want
-    # one diagonal, five scan and one carry shuffle; one warp max
+    # five scan shuffles and one carry shuffle (which is also the next
+    # row's diagonal); no warp reduction in the row loop
     items = sc.row_census(C)["items"]
-    assert sum(i.get("shfl", 0) for i in items.values()) == 1 + 5 + 1
-    assert items["reduce"]["redux"] == 1
-    assert items["vertical"]["dpx"] + items["carry_in"]["dpx"] == 2 * C
+    assert sum(i.get("shfl", 0) for i in items.values()) == 5 + 1
+    assert all("redux" not in i for i in items.values())
+    # three DPX a column (substitution test, recurrence, row min) and the
+    # lane min's VIMNMX3 over column pairs
+    assert items["vertical"]["dpx"] + items["running"]["dpx"] == 3 * C
+    assert items["lane_min"]["dpx"] == (C - 1) // 2
+    # the recomputation nvcc adds at a kernel's largest column counts
+    assert sc.row_census(16, 32, 16)["total"]["alu"] == \
+        sc.row_census(16, 32)["total"]["alu"] + sc.RECOMPUTED[32, 16, 16]
 
 
-@pytest.mark.parametrize("R,C", [(3, 4), (127, 4), (128, 8), (255, 8),
-                                 (256, 16), (511, 16), (512, 32),
+@pytest.mark.parametrize("R,C", [(3, 1), (127, 16), (128, 9), (255, 16),
+                                 (256, 17), (511, 16), (512, 17),
                                  (1023, 32)])
 def test_cols_per_lane(R, C):
-    assert sc.cols_per_lane(R) == C
+    lanes, cmax = sc.shape_for(R)
+    assert sc.cols_per_lane(R, lanes) == C <= cmax
     assert sc.census_screen_ops(R, 64, 50)["cols_per_lane"] == C
+    assert sc.census_screen_ops(R, 64, 50)["lanes"] == lanes
+
+
+@pytest.mark.parametrize("R,shape", [(1, (8, 16)), (127, (8, 16)),
+                                     (128, (16, 18)), (287, (16, 18)),
+                                     (288, (32, 16)), (511, (32, 16)),
+                                     (512, (32, 32)), (1023, (32, 32)),
+                                     (1024, (0, 0))])
+def test_shape_follows_the_table_width(R, shape):
+    assert sc.shape_for(R) == shape
 
 
 def test_census_at_roofline_shape():
     c = sc.census_screen_ops(256, 64, 50)
-    fwd, rev = ROWS[16]
-    combine_trips = 2  # ceil(51 / 32)
-    assert c["rows"] == 100
-    assert c["per_candidate"] == {
-        "alu": 50 * (fwd[0] + rev[0]) + 5 * combine_trips,
-        "dpx": 50 * (fwd[1] + rev[1]), "shfl": 50 * 14, "redux": 101}
+    assert (c["lanes"], c["cols_per_lane"], c["candidates_per_warp"]) == \
+        (16, 17, 2)
+    row = sc.row_census(17, 16, 18)["total"]
+    # 50 rows: one full tile of 32 and a rest of 18
+    flushes = [sc.flush_census(16, 32)["total"],
+               sc.flush_census(16, 18)["total"]]
+    combine_trips = 4  # ceil(51 / 16)
+    assert c["rows"] == 50
+    per_warp = {k: 50 * row[k] + sum(f[k] for f in flushes)
+                for k in sc.CLASSES}
+    per_warp["alu"] += 5 * combine_trips + 4
+    per_warp["shfl"] += 4
+    assert c["per_candidate"] == {k: v / 2 for k, v in per_warp.items()}
     assert c["warp_instructions_per_candidate"] == \
         sum(c["per_candidate"].values())
 
 
 @pytest.mark.parametrize("read_len", [1, 25, 50, 64])
 def test_census_scales_with_read_length(read_len):
-    base = sc.census_screen_ops(256, 64, 50)["per_candidate"]
-    c = sc.census_screen_ops(256, 64, read_len)["per_candidate"]
-    trips = -(-(read_len + 1) // 32)
-    for k in ("dpx", "shfl"):
-        assert c[k] * 50 == base[k] * read_len
-    assert c["redux"] == 2 * read_len + 1
-    assert c["alu"] - 5 * trips == (base["alu"] - 10) * read_len // 50
+    c = sc.census_screen_ops(256, 64, read_len)
+    row = sc.row_census(17, 16)["total"]
+    full, rest = divmod(read_len, 32)
+    flush_dpx = full * sc.flush_census(16, 32)["total"]["dpx"] + \
+        (sc.flush_census(16, rest)["total"]["dpx"] if rest else 0)
+    assert c["per_candidate"]["dpx"] == \
+        (read_len * row["dpx"] + flush_dpx) / 2
+    assert c["per_candidate"]["shfl"] == (read_len * row["shfl"] + 4) / 2
+    assert c["per_candidate"]["redux"] == 0
 
 
 def test_census_clips_rows_to_read_width():
     assert sc.census_screen_ops(256, 64, 100) == \
         {**sc.census_screen_ops(256, 64, 64), "read_len": 100}
     assert sc.census_screen_ops(256, 64, 0)["per_candidate"] == \
-        {"alu": 5, "dpx": 0, "shfl": 0, "redux": 1}
+        {"alu": (5 * 1 + 4) / 2, "dpx": 0, "shfl": 4 / 2, "redux": 0}
 
 
 def test_census_grows_across_a_column_boundary():
-    """R = 255 fits 8 columns a lane, R = 256 needs 16: every row's
-    per-column work doubles, the per-row shuffles and reductions stay."""
+    """R = 255 takes 16 columns a lane of its 16 lanes, R = 256 takes 17:
+    every row gains one column's work, the per-row shuffles stay; flanks
+    shorter than the table take fewer columns."""
     narrow = sc.census_screen_ops(255, 64, 50)
     wide = sc.census_screen_ops(256, 64, 50)
-    assert (narrow["cols_per_lane"], wide["cols_per_lane"]) == (8, 16)
-    assert wide["per_candidate"]["dpx"] == 2 * narrow["per_candidate"]["dpx"]
-    assert wide["per_candidate"]["alu"] > 1.5 * narrow["per_candidate"]["alu"]
-    for k in ("shfl", "redux"):
-        assert wide["per_candidate"][k] == narrow["per_candidate"][k]
-    assert sc.census_screen_ops(256, 64, 50) == \
-        sc.census_screen_ops(300, 64, 50) | {"R": 256}
+    assert (narrow["cols_per_lane"], wide["cols_per_lane"]) == (16, 17)
+    assert wide["per_row"]["dpx"] - narrow["per_row"]["dpx"] == 4
+    assert wide["per_row"]["alu"] - narrow["per_row"]["alu"] == 1
+    assert wide["per_row"]["shfl"] == narrow["per_row"]["shfl"]
+    short = sc.census_screen_ops(256, 64, 50, ref_len=100)
+    assert short["cols_per_lane"] == 7
+    assert short["per_candidate"]["dpx"] < 0.5 * wide["per_candidate"]["dpx"]
     with pytest.raises(ValueError, match="flank width"):
         sc.census_screen_ops(1024, 64, 50)
+
+
+def test_screen_bound_counts_cells_from_the_operands():
+    ulen1 = np.array([10, 0, 256], np.int32)
+    ulen2 = np.array([20, 5, 256], np.int32)
+    idx = np.array([0, 0, 1, 2], np.int32)
+    lens = torch.tensor([50, 0, 7, 50], dtype=torch.int32)
+    cells = sc.screen_cells(ulen1, ulen2, idx, lens)
+    assert cells == 50 * (11 + 21) + 0 + 7 * (1 + 6) + 50 * (257 + 257)
+    cost = {"alu": 1e-3, "dpx": 2e-3, "shfl": 2e-3, "redux": 5e-3}
+    # 5 instructions a cell (3 alu, 2 dpx), 64 cells a warp instruction
+    assert sc.screen_bound_ms(cells, cost) == \
+        pytest.approx(cells / 64 * (3 * 1e-3 + 2 * 2e-3) / 1e6)
+    assert sc.screen_bound_ms(cells, cost, packed=False) == \
+        pytest.approx(2 * sc.screen_bound_ms(cells, cost))
 
 
 @pytest.mark.parametrize("mix", sc.MIXES)
@@ -99,10 +142,34 @@ def test_mix_census_is_unrolled_steps_plus_control(mix):
 
 # --- the probe's plain version -----------------------------------------------
 
+def simulate16(seed: np.ndarray, n: int, mix: str) -> np.ndarray:
+    """The 16x2 mixes chain by chain in Python integers: each int16 half of
+    the four packed chains takes the ``alu`` or ``dpx`` step; the thread's
+    result is the largest packed chain as an int32."""
+    out = np.empty(len(seed), dtype=np.int64)
+    for t, start in enumerate(seed.astype(np.int64) & sc.HALF_MASK):
+        chains = [[(int(start) + c) & 0xFFFF, (int(start) + c) >> 16]
+                  for c in range(sc.STREAMS)]
+        for _ in range(n):
+            for c in range(0, sc.STREAMS, 2):
+                for h in range(2):
+                    x, y = chains[c][h], chains[c + 1][h]
+                    if mix == "alu16":
+                        chains[c][h], chains[c + 1][h] = \
+                            max(x, y) + 1, min(x, y) + 2
+                    else:
+                        chains[c][h], chains[c + 1][h] = \
+                            max(x + 1, y), max(y + 2, x)
+        out[t] = max((hi << 16) | lo for lo, hi in chains)
+    return out
+
+
 def closed_form(seed: np.ndarray, n: int, mix: str) -> np.ndarray:
     """Each thread's max over its chains after n steps, in closed form.
     Chains start at seed + s; the largest pair starts at seed + (2, 3)."""
     s = seed.astype(np.int64)
+    if mix in ("alu16", "dpx16"):
+        return simulate16(seed, n, mix)
     if mix == "alu":    # (a, a+1) -> (a+3m, a+3m+1) after 2m steps
         return s + 3 + (3 * n // 2 if n % 2 == 0 else (3 * n + 1) // 2 - 1)
     if mix == "dpx":    # (a, a+1) -> (a+2n-1, a+2n+1)
@@ -171,7 +238,7 @@ def sass(name, body):
 PROBE = "_ZN47_GLOBAL__N__6fa9ba2c_14_issue_probe_cu_45d4067912probe_kernel" \
     "ILi2EEEvPKiiPi"
 SCREEN = "_ZN44_GLOBAL__N__02a77418_11_split_dp_cu_bb31729813screen_kernel" \
-    "ILi16EEEvPKhPKiS2_S4_iS4_S2_S4_iS4_PiiNS_6ScoresE"
+    "ILi16ELi32EEEvPKhPKiS2_S4_iS4_S2_S4_iS4_PiiNS_6ScoresE"
 
 
 def probe_text():
@@ -204,22 +271,40 @@ def test_sass_loops_reads_label_targets_and_innermost_loops():
         "@P0 BRA `(.L_x_0)", "EXIT"])
     loops = sc.sass_loops(text)[SCREEN]
     assert len(loops) == 1  # the outer loop holds the inner one
-    assert loops[0]["counts"]["redux"] == 1
-    rows = sc.screen_row_loops(text)
-    assert list(rows) == [16] and rows[16] == []  # no shuffle inside
+    assert loops[0]["counts"]["redux"] == 1 and loops[0]["nested"] == 0
+    # every loop: the outer one is counted without the inner one's body
+    inner, outer = sorted(sc.sass_loops(text, innermost=False)[SCREEN],
+                          key=lambda lp: lp["end"])
+    assert inner == loops[0] and outer["nested"] == 1
+    assert outer["counts"] == {"alu": 1, "dpx": 0, "shfl": 2, "redux": 1,
+                               "mem": 0, "control": 1}
+    # no loop here has the six shuffles a row of a 32-lane group needs
+    assert sc.screen_row_loops(text) == {(32, 16): {}}
+
+
+def row_body(C):
+    """A row of dp_rows<C, 32> as the reader sees it: three VIADDMNMX a
+    column, six shuffles, one more instruction of each other kind."""
+    return ["VIADDMNMX.S16x2 R5, R5, 0x60006, R4, PT"] * (3 * C) + \
+        ["SHFL.UP PT, R4, R5, 0x1, RZ"] * 6 + \
+        ["VIMNMX.S16x2 R6, R5, R4, PT", "LDS R7, [R8]"]
 
 
 def test_screen_row_loops_per_row_counts():
+    # two row loops (C = 2 and C = 1), the first with the tile flush's
+    # reduction loop nested inside
     text = sass(SCREEN, [
-        "MOV R2, RZ", "SHFL.UP PT, R4, R5, 0x1, RZ",
-        "VIADDMNMX R5, R5, 0x1, R4, !PT", "REDUX.MAX.S32 UR4, R5",
-        "SHFL.UP PT, R4, R5, 0x1, RZ", "VIADDMNMX R5, R5, 0x1, R4, !PT",
-        "REDUX.MAX.S32 UR4, R5", "IADD3 R2, R2, 0x2, RZ",
-        "ISETP.NE.AND P1, PT, R2, R7, PT", "@P1 BRA 0x10", "EXIT"])
-    (row,) = sc.screen_row_loops(text)[16]
-    assert row["rows_per_trip"] == 2
-    assert row["per_row"] == {"alu": 1.0, "dpx": 1.0, "shfl": 1.0,
-                              "redux": 1.0}
+        "MOV R2, RZ", *row_body(2), "LDS R9, [R10]",
+        "VIMNMX3.S16x2 R9, R9, R11, R12, PT", "@P2 BRA 0xf0",
+        "ISETP.NE.AND P1, PT, R2, R7, PT", "@P1 BRA 0x10",
+        *row_body(1), "@P1 BRA 0x140", "EXIT"])
+    rows = sc.screen_row_loops(text)[32, 16]
+    assert sorted(rows) == [1, 2]
+    assert rows[2]["rows_per_trip"] == 1 and rows[2]["nested"] == 1
+    assert rows[2]["per_row"] == {"alu": 2.0, "dpx": 6.0, "shfl": 6.0,
+                                  "redux": 0.0}
+    assert rows[1]["per_row"] == {"alu": 1.0, "dpx": 3.0, "shfl": 6.0,
+                                  "redux": 0.0}
 
 
 @pytest.mark.parametrize("opcode,cls", [

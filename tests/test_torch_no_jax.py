@@ -1,76 +1,88 @@
-"""The port never imports ``jax``: importing every module of
-``defuse_tpu_torch`` and running its discover and its aligner frontend
-(every candidate verified by the port's verifier) on the CPU leaves
-``jax`` out of ``sys.modules``.  Runs in subprocesses, because this test
-process imported ``jax`` in ``conftest.py``."""
+"""The port never imports ``jax`` nor anything of ``defuse_tpu``:
+importing every module of ``defuse_tpu_torch`` and running its discover
+and its aligner frontend (every candidate verified by the port's
+verifier) on the CPU leaves ``jax``, ``defuse_tpu``, ``bench`` and the
+test helpers out of ``sys.modules``.  Runs in subprocesses, because this
+test process imported ``jax`` in ``conftest.py``; the datasets are written
+here, since ``tests/synthdata.py`` imports ``defuse_tpu``.  A static case
+reads every import statement of the port and of ``chip_smoke.py``."""
 
+import ast
 import pathlib
 import subprocess
 import sys
 
 import pytest
 
+from defuse_tpu_torch.cluster import native
+from synthdata import make_dataset, write_dataset
+from torch_cases import frontend_config
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-SCRIPT = r"""
-import importlib, pathlib, pkgutil, sys
-sys.path[:0] = [{repo!r}, {tests!r}]
+PRELUDE = r"""
+import os, pathlib, sys
+sys.path.insert(0, {repo!r})
+tmp = pathlib.Path({tmp!r})
+
+
+def foreign():
+    return sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "defuse_tpu", "bench", "synthdata",
+                   "torch_cases"))
+"""
+
+SCRIPT = PRELUDE + r"""
+import importlib, pkgutil
 import defuse_tpu_torch
 for mod in pkgutil.walk_packages(defuse_tpu_torch.__path__,
                                  "defuse_tpu_torch."):
     importlib.import_module(mod.name)
-assert "jax" not in sys.modules, "importing the port imported jax"
+assert not foreign(), ("importing the port imported", foreign())
 
-from synthdata import make_dataset, write_dataset
 from defuse_tpu_torch.pipeline.discover import discover_fusions
-tmp = pathlib.Path({tmp!r})
-paths = write_dataset(make_dataset(seed=31, fusion_pair=("TA", "TD"),
-                                   break_a=2400, break_b=1000), tmp)
+data = tmp / "data"
 outs = discover_fusions(
-    spanning=str(paths["spanning"]), improper=str(paths["improper"]),
-    fastq1=str(paths["fastq1"]), fastq2=str(paths["fastq2"]),
-    reference=str(paths["reference"]), exons=str(paths["exons"]),
+    spanning=str(data / "spanning.compact"),
+    improper=str(data / "improper.sam"),
+    fastq1=str(data / "reads.1.fastq"), fastq2=str(data / "reads.2.fastq"),
+    reference=str(data / "reference.fa"), exons=str(data / "cdna.regions"),
     fragment_mean=200.0, fragment_stddev=20.0, precision=0.95,
     min_cluster_size=3, min_read_length=50, max_read_length=50,
     outdir=str(tmp / "out"), device="cpu")
 assert pathlib.Path(outs["seq"]).read_text(), "no fusion called"
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-assert not bad, bad
+assert not foreign(), foreign()
 print("NO_JAX_OK")
 """
 
 
-FRONTEND = r"""
-import os, pathlib, sys
-sys.path[:0] = [{repo!r}, {tests!r}]
+FRONTEND = PRELUDE + r"""
 os.environ["DEFUSE_DEVICE_VERIFY"] = "force"
-from synthdata import make_dataset, write_dataset
-from torch_cases import frontend_config
 from defuse_tpu_torch.align.frontend import align_reads
+from defuse_tpu_torch.config import Config
 from defuse_tpu_torch.ops import verify_batch
 calls = []
 verify = verify_batch.DeviceVerifier.__call__
 verify_batch.DeviceVerifier.__call__ = \
     lambda self, *a: calls.append(1) or verify(self, *a)
-tmp = pathlib.Path({tmp!r})
-ds = make_dataset(seed=29, n_fusion_frags=40, n_background_frags=40)
-paths = write_dataset(ds, tmp)
-res = align_reads(frontend_config(ds, tmp / "refs"), str(tmp / "out"),
-                  str(paths["fastq1"]), str(paths["fastq2"]), device="cpu")
+refs, data = tmp / "refs", tmp / "data"
+config = Config.defaults(gene_models=refs / "genes.gtf",
+                         genome_fasta=refs / "genome.fa",
+                         cdna_fasta=refs / "cdna.fa",
+                         pair_sam_checkpoint="eager")
+res = align_reads(config, str(tmp / "out"), str(data / "reads.1.fastq"),
+                  str(data / "reads.2.fastq"), device="cpu")
 assert calls, "the port's verifier never ran"
 assert pathlib.Path(res["improper"]).stat().st_size > 0
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-assert not bad, bad
+assert not foreign(), foreign()
 print("NO_JAX_OK")
 """
 
 
 def run_without_jax(script, tmp_path):
-    from defuse_tpu.cluster import native
     if not native.available():
         pytest.skip("native library not built")
-    src = script.format(repo=str(REPO), tests=str(REPO / "tests"),
-                        tmp=str(tmp_path))
+    src = script.format(repo=str(REPO), tmp=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", src], capture_output=True,
                           text=True, timeout=600, cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -78,8 +90,38 @@ def run_without_jax(script, tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
+    write_dataset(make_dataset(seed=31, fusion_pair=("TA", "TD"),
+                               break_a=2400, break_b=1000),
+                  tmp_path / "data")
     run_without_jax(SCRIPT, tmp_path)
 
 
 def test_port_frontend_runs_without_jax(tmp_path):
+    ds = make_dataset(seed=29, n_fusion_frags=40, n_background_frags=40)
+    write_dataset(ds, tmp_path / "data")
+    frontend_config(ds, tmp_path / "refs")  # writes the references
     run_without_jax(FRONTEND, tmp_path)
+
+
+FORBIDDEN = ("defuse_tpu", "jax", "jaxlib", "bench", "synthdata", "helpers",
+             "torch_cases", "conftest", "tests")
+PORT_FILES = sorted((REPO / "defuse_tpu_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_the_reference(path):
+    """No ``import``/``from`` statement of the port, at any depth of any
+    function, names ``defuse_tpu``, ``jax``, ``bench`` or a module under
+    ``tests/``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, \
+                f"{path.name}:{node.lineno} imports {name}"

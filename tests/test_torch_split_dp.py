@@ -21,7 +21,9 @@ from defuse_tpu_torch.ops.split_dp_batch import (combine_split_scores,
                                                  dp_row_maxima, pad_batch,
                                                  screen_candidates_ref)
 
-from torch_cases import SWEEP, rand_seq, screen_case, sweep_inputs, tensors
+from torch_cases import (EDGE_CASES, SWEEP, edge_case, rand_seq, screen_case,
+                         sweep_inputs, tensors)
+
 
 @pytest.mark.parametrize("R,L", SWEEP)
 def test_plain_matches_jax_batch_dp(R, L):
@@ -65,6 +67,47 @@ def test_plain_matches_pallas_interpret():
         False))
     got = dp_row_maxima(*tensors(refs, rl, reads, ql)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# the Pallas kernel in interpret mode takes minutes at 1,024 rows; those
+# cases hold the plain version against the XLA batch DP instead
+INTERPRET = sorted(n for n, c in EDGE_CASES.items() if c[1] <= 64)
+
+
+@pytest.mark.parametrize("name", INTERPRET)
+def test_plain_matches_pallas_interpret_on_edge_cases(name):
+    from defuse_tpu.ops.split_dp_pallas import _dp_row_maxima_pallas
+    (refs, rl, reads, ql), _screen = edge_case(name)
+    want = np.asarray(_dp_row_maxima_pallas(
+        refs.astype(np.int32), rl, reads.astype(np.int32), ql, 256, True,
+        False))
+    got = dp_row_maxima(*tensors(refs, rl, reads, ql)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_plain_matches_jax_on_edge_cases(name):
+    """Row maxima against the XLA batch DP, the screen against the XLA
+    screen built from it (rows, combine, threshold), on the cases a
+    packed, right-aligned kernel can get wrong."""
+    (refs, rl, reads, ql), screen = edge_case(name)
+    want = np.asarray(jax_batch.dp_row_maxima(refs, rl, reads, ql))
+    got = dp_row_maxima(*tensors(refs, rl, reads, ql)).numpy()
+    np.testing.assert_array_equal(got, want)
+    R, L, _B, kind = EDGE_CASES[name]
+    if kind == "match":    # the int16 range's upper end: 2 * 1,023
+        assert got.max() == 2 * min(R, L)
+    u1, l1, u2r, l2, idx, sreads, sl, mins = screen
+    rev = np.zeros_like(sreads)
+    for b, n in enumerate(sl):
+        rev[b, :n] = sreads[b, :n][::-1]
+    rm1 = jax_batch.dp_row_maxima(u1[idx], l1[idx], sreads, sl)
+    rm2 = jax_batch.dp_row_maxima(u2r[idx], l2[idx], rev, sl)
+    want_s, _k = jax_batch.combine_split_scores(rm1, rm2, sl, mins)
+    ops = screen_operands(*screen, "cpu")
+    np.testing.assert_array_equal(
+        split_dp_cuda.screen_candidates(*ops).numpy(), np.asarray(want_s))
+    assert np.asarray(want_s).max() > 0
 
 
 def test_combine_matches_jax():

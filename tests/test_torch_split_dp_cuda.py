@@ -15,7 +15,8 @@ from defuse_tpu_torch.ops import split_dp_cuda
 from defuse_tpu_torch.ops.split_dp_batch import (dp_row_maxima,
                                                  screen_candidates_ref)
 
-from torch_cases import SWEEP, screen_case, sweep_inputs, tensors
+from torch_cases import (EDGE_CASES, SWEEP, edge_case, screen_case,
+                         sweep_inputs, tensors)
 
 
 @pytest.fixture
@@ -36,6 +37,20 @@ def test_kernel_matches_plain_on_card(cuda_device, R, L):
     ops = screen_operands(*screen_case(), cuda_device)
     torch.testing.assert_close(split_dp_cuda.screen_candidates(*ops),
                                screen_candidates_ref(*ops), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_kernel_matches_plain_on_edge_cases(cuda_device, name):
+    rowmax_in, screen_in = edge_case(name)
+    ts = [t.to(cuda_device) for t in tensors(*rowmax_in)]
+    torch.testing.assert_close(split_dp_cuda.dp_row_maxima_cuda(*ts),
+                               dp_row_maxima(*ts), rtol=0, atol=0)
+    ops = screen_operands(*screen_in, cuda_device)
+    want = screen_candidates_ref(*ops)
+    torch.testing.assert_close(split_dp_cuda.screen_candidates(*ops), want,
+                               rtol=0, atol=0)
+    assert int(want.max()) > 0
 
 
 @pytest.mark.cuda
