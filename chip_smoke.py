@@ -25,13 +25,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    is held by ``tests/test_torch_discover.py``;
 6. verify kernel = plain version, exactly, on edge cases (every lane,
    candidates in the plane's last word, read lengths 0, 1, 9, 10, 11 and
-   L, N on either side, repeated reads), then timed at the bench's verify
-   microbench shape (4,000,000 bases, 20,000 reads of 50 bp, 65,536 and
-   524,288 candidates): marginal candidates/s of kernel and plain;
+   L, N on either side, repeated reads) at a read length for each of its
+   group widths, its two roofline legs (``gather``, ``compute``) likewise;
+   then checked and timed, with the legs, at three shapes: A, the verify
+   microbench (4,000,000 bases, 20,000 reads of 50 bp, 65,536 and 524,288
+   candidates with random ``read_idx``); B, the same candidates sorted by
+   (read, position) as the frontend sends them; C, a genome's plane made on
+   the card (3.1e9 bases, 1.24 GB; 1,048,576 reads of 100 bp cut out of it
+   with 0-3 planted mismatches; 8 sorted candidates a read), where every
+   source window must get its planted count and the plain version holds
+   the first 1,048,576 candidates;
 7. frontend: the port's ``align_reads`` on the bench dataset's reads with
    ``DEFUSE_DEVICE_VERIFY=force`` (the Python seed path, every candidate
-   verified by the kernel) and on the native route, artifacts
-   byte-identical, the kernel's launches counted, both wall times;
+   verified by the kernel, one launch for each call of the verifier) and
+   on the native route, artifacts byte-identical, the kernel's launches
+   counted, both wall times;
 8. probe and roofline: each issue-probe mix = its plain version exactly;
    the census of the probe's loops and of every row loop of the screen
    kernels against the machine code (``cuobjdump -sass``), within 20% per
@@ -40,9 +48,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 All kernel comparisons are exact (integer results; tolerance 0).  Each
 kernel's bound is the larger of its least bytes over the card's memory
-rate and its least operations at the probe's measured issue rates.  Prints
-a line of each kernel's time, launches and bound, a JSON line of
-per-kernel results, then ``{"ok": true, "device": ...}`` last.
+rate and its least operations at the probe's measured issue rates; the
+verify's is printed for each of its shapes, beside the same bytes counted
+in 32 B sectors.  Prints a line of each kernel's time, launches and bound,
+a JSON line of per-kernel results (the verify's at shape B, the order the
+main path sends, with all three shapes under ``shapes``), then
+``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -381,62 +392,163 @@ def phase_end_to_end(card, work, dataset):
 
 # --- phase 6 ----------------------------------------------------------------
 
+# A and B: the verify microbench (4,000,000 bases, 20,000 reads of 50 bp)
 VERIFY_N, VERIFY_READS, VERIFY_READ = 4_000_000, 20_000, 50
 VERIFY_BATCHES = (65_536, 524_288)
+# C: a genome's plane (3.1e9 bases, 1.24 GB), 1,048,576 reads of 100 bp, 8
+# candidates a read; the plain version runs on the first GENOME_BATCHES[0]
+GENOME_READ = 100
+GENOME_BATCHES = (1 << 20, 1 << 23)
+# a read length for each kernel: 8, 16 and 32 lanes a candidate (both ends
+# of each range) and a warp walking the row
+VERIFY_EDGE_LENGTHS = (1, 50, 53, 70, 71, 100, 150, 151, 310, 311, 700)
 
 
-def phase_verify(card, dev, rng):
-    from defuse_tpu_torch.convert import verify_operands
-    from defuse_tpu_torch.ops.verify_batch import verify_packed3_ref
-    from defuse_tpu_torch.ops.verify_cuda import verify_packed3
-    from defuse_tpu_torch.utils.synth import verify_case
-
-    codes, starts, reads, ridx, lens = verify_case(int(rng.integers(1 << 30)))
-    ops = verify_operands(codes, starts, reads, ridx, lens, dev)
-    L = reads.shape[1]
-    want = verify_packed3_ref(*ops, L)
-    got = verify_packed3(*ops, L)
-    err = int((got - want).abs().max())
-    check(err == 0, "verify kernel differs from plain on the edge cases")
-    check(int(want.max()) > 0 and int((want == 0).sum()) > 0,
-          "edge cases hold no mismatch or no exact match")
-    say(card, f"verify kernel == plain (exact) on {len(starts)} edge-case "
-              "candidates")
-
+def verify_shape(rng):
+    """The microbench's inputs as numpy (codes, starts, reads, read_idx,
+    read_lens): VERIFY_BATCHES[-1] candidates, ``read_idx`` drawn at
+    random (shape A; sorted by (read, start) they are shape B)."""
     codes = rng.integers(0, 4, VERIFY_N).astype(np.int8)
     reads = rng.integers(0, 4, (VERIFY_READS, VERIFY_READ)).astype(np.int8)
     lens = np.full(VERIFY_READS, VERIFY_READ, np.int32)
     C = VERIFY_BATCHES[-1]
     starts = rng.integers(0, VERIFY_N - VERIFY_READ, C)
     ridx = rng.integers(0, VERIFY_READS, C).astype(np.int32)
-    ref3, w10, l10, reads3, ridx_t, lens_t = verify_operands(
-        codes, starts, reads, ridx, lens, dev)
-    times = {}
-    # the kernel from a CUDA graph of 20 launches (a launch takes less time
-    # than the host's wrapper call); the plain version's ops run longer
-    for name, fn, graph in (("kernel", verify_packed3, True),
-                            ("plain", verify_packed3_ref, False)):
-        for c in VERIFY_BATCHES:
-            args = (ref3, w10[:c], l10[:c], reads3, ridx_t[:c], lens_t,
-                    VERIFY_READ)
-            times[name, c] = time_ms(lambda: fn(*args), 20, graph=graph,
-                                     rounds=3)
-    full = (ref3, w10, l10, reads3, ridx_t, lens_t, VERIFY_READ)
-    e = int((verify_packed3(*full) - verify_packed3_ref(*full)).abs().max())
-    check(e == 0, "verify kernel differs from plain at the microbench shape")
-    for name in ("kernel", "plain"):
-        t_small, t_big = times[name, VERIFY_BATCHES[0]], times[name, C]
-        marginal = (t_big - t_small) / (C - VERIFY_BATCHES[0])  # ms/cand
-        say(card, f"verify {name}: {t_big:.3f} ms for {C} candidates, "
-                  f"{t_small:.3f} ms for {VERIFY_BATCHES[0]}; marginal "
-                  f"{1e3 / marginal:.0f} candidates/s "
-                  f"({VERIFY_READ * 1e3 / marginal:.0f} bases/s)")
-    # least bytes: every operand read once (the plane, the reads, 12 B of
-    # indices a candidate), 4 B a candidate written
-    work = {"candidates": C, "words": C * reads3.shape[1],
-            "bytes": sum(t.numel() * t.element_size() for t in full[:6])
-            + 4 * C}
-    return max(err, e), times["kernel", C], times["plain", C], work
+    return codes, starts, reads, ridx, lens
+
+
+def first(ops, c):
+    """The operands of the first ``c`` candidates."""
+    ref3, w10, l10, reads3, ridx, lens = ops
+    return ref3, w10[:c], l10[:c], reads3, ridx[:c], lens
+
+
+def verify_at_shape(card, name, ops, L, counts, n_check, exact_hits=False):
+    """Kernel = plain version on the first ``n_check`` candidates (which
+    hold mismatches and, where ``exact_hits``, exact matches), then the
+    kernel, its two legs and the plain version timed at the two candidate
+    counts.  Returns the shape's record: times, marginals and the work of
+    both counts."""
+    from defuse_tpu_torch.ops.verify_batch import verify_packed3_ref
+    from defuse_tpu_torch.ops.verify_cuda import verify_packed3
+    from defuse_tpu_torch.ops.verify_roofline import legs_ms, verify_work
+
+    sub = first(ops, n_check)
+    want = verify_packed3_ref(*sub, L)
+    err = int((verify_packed3(*ops, L)[:n_check] - want).abs().max())
+    hits = int((want == 0).sum())
+    check(err == 0, f"verify {name}: kernel differs from plain")
+    check(int(want.max()) > 0 and (hits > 0 or not exact_hits),
+          f"verify {name}: no mismatch or no exact match checked")
+    del want
+    legs = legs_ms(ops, L, counts)
+    plain_counts = [c for c in counts if c <= n_check]
+    plain = {c: time_ms(lambda c=c: verify_packed3_ref(*first(ops, c), L), 2)
+             for c in plain_counts}
+    rec = {"L": L, "counts": list(counts), "checked": n_check,
+           "exact_hits_checked": hits, "err": err,
+           "legs": legs, "ms": legs["full"]["ms"][1],
+           "plain_ms": plain[plain_counts[-1]],
+           "plain_candidates": plain_counts[-1],
+           "work": [verify_work(*first(ops, c)) for c in counts]}
+    say(card, f"verify {name}: kernel == plain (exact) on {n_check} "
+              f"candidates ({hits} of them exact matches); kernel {legs['full']['ms'][1]:.4f} ms for "
+              f"{counts[1]} candidates, {legs['full']['ms'][0]:.4f} ms for "
+              f"{counts[0]}; marginal ns a candidate: full "
+              f"{legs['full']['marginal_ns']:.4f}, gather "
+              f"{legs['gather']['marginal_ns']:.4f}, compute "
+              f"{legs['compute']['marginal_ns']:.4f}; legs at {counts[1]}: "
+              f"gather {legs['gather']['ms'][1]:.4f} ms, compute "
+              f"{legs['compute']['ms'][1]:.4f} ms; plain "
+              f"{rec['plain_ms']:.3f} ms for {rec['plain_candidates']}")
+    return rec
+
+
+def phase_verify(card, dev, rng):
+    from defuse_tpu_torch.convert import verify_operands
+    from defuse_tpu_torch.ops.verify_batch import verify_packed3_ref
+    from defuse_tpu_torch.ops.verify_cuda import group_lanes, verify_packed3
+    from defuse_tpu_torch.ops.verify_roofline import verify_leg
+    from defuse_tpu_torch.utils.synth import verify_case, verify_genome_case
+
+    lanes = {}
+    for L in VERIFY_EDGE_LENGTHS:
+        codes, starts, reads, ridx, lens = verify_case(
+            int(rng.integers(1 << 30)), L=L)
+        ops = verify_operands(codes, starts, reads, ridx, lens, dev)
+        want = verify_packed3_ref(*ops, L)
+        e = int((verify_packed3(*ops, L) - want).abs().max())
+        check(e == 0, f"verify kernel differs from plain on the edge cases "
+                      f"at L={L}")
+        check(int(want.max()) > 0 and int((want == 0).sum()) > 0,
+              "edge cases hold no mismatch or no exact match")
+        cpu = tuple(t.cpu() for t in ops)
+        for leg in ("gather", "compute"):
+            check(torch.equal(verify_leg(leg, *ops, L).cpu(),
+                              verify_leg(leg, *cpu, L)),
+                  f"verify {leg} leg differs from its plain version at L={L}")
+        lanes[L] = group_lanes(L)
+    say(card, f"verify kernel and both legs == plain (exact) on "
+              f"{len(starts)} edge-case candidates at each L: lanes a "
+              f"candidate {lanes} (0: a warp walks the row)")
+
+    shapes = {}
+    codes, starts, reads, ridx, lens = verify_shape(rng)
+    by = np.lexsort((starts, ridx))  # (read, start): SeedIndex.candidates
+    for name, order in (("A", slice(None)), ("B", by)):
+        ops = verify_operands(codes, starts[order], reads, ridx[order], lens,
+                              dev)
+        shapes[name] = verify_at_shape(card, name, ops, VERIFY_READ,
+                                       VERIFY_BATCHES, VERIFY_BATCHES[-1])
+    del ops
+
+    t0 = time.time()
+    ops, is_source, planted = verify_genome_case(dev, seed=2024)
+    torch.cuda.synchronize()
+    say(card, f"verify C: plane of {ops[0].numel()} words "
+              f"({ops[0].numel() * 4 / 1e9:.2f} GB), {ops[3].shape[0]} reads "
+              f"of {GENOME_READ} bp, {ops[1].numel()} candidates made on the "
+              f"card in {time.time() - t0:.2f} s")
+    check(ops[1].numel() == GENOME_BATCHES[-1], "genome case: candidates")
+    got = verify_packed3(*ops, GENOME_READ)
+    check(torch.equal(got[is_source].long(),
+                      planted[ops[4].long()[is_source]]),
+          "verify C: a read's source window does not get its planted "
+          "mismatches")
+    say(card, f"verify C: {int(is_source.sum())} source windows get their "
+              f"planted mismatches (0..3: "
+              f"{torch.bincount(planted, minlength=4).tolist()} reads)")
+    del got
+    shapes["C"] = verify_at_shape(card, "C", ops, GENOME_READ,
+                                  GENOME_BATCHES, GENOME_BATCHES[0],
+                                  exact_hits=True)
+    say(card, f"peak device memory in the verify phase: "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return max(r["err"] for r in shapes.values()), shapes
+
+
+def verify_bounds(card, shapes, alu_ns):
+    """Each shape's bound (at its larger count and for the marginal
+    candidate) beside its times; fills the records in."""
+    from defuse_tpu_torch.ops.verify_roofline import verify_ops_ms
+    for name, rec in shapes.items():
+        small, big = rec["work"]
+        rec["bound_ms"], rec["bound_by"] = bound(
+            big["bytes"], verify_ops_ms(big["words"], alu_ns))
+        dc = big["candidates"] - small["candidates"]
+        marginal_ms, by = bound(
+            big["bytes"] - small["bytes"],
+            verify_ops_ms(big["words"] - small["words"], alu_ns))
+        rec["marginal_bound_ns"] = marginal_ms * 1e6 / dc
+        full = rec["legs"]["full"]["marginal_ns"]
+        say(card, f"verify {name} ({big['candidates']} candidates, L "
+                  f"{rec['L']}): {rec['ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                  f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of bound; "
+                  f"{big['bytes']} B least, {big['sector_bytes']} B in 32 B "
+                  f"sectors with no cache); marginal {full:.4f} ns a "
+                  f"candidate, bound {rec['marginal_bound_ns']:.4f} ns by "
+                  f"{by} ({100 * rec['marginal_bound_ns'] / full:.1f}%)")
 
 
 # --- phase 7 ----------------------------------------------------------------
@@ -500,7 +612,8 @@ def phase_frontend(card, work, dataset):
               f"first run with index build {t_index:.3f} s; "
               f"{len(FRONTEND_ARTIFACTS)} artifacts byte-identical "
               f"(improper {len(a['improper'])} B, spanning "
-              f"{len(a['spanning'])} B); launches {launches}")
+              f"{len(a['spanning'])} B); launches {launches}: one for each "
+              "call of the verifier that had candidates")
     return launches
 
 
@@ -536,6 +649,19 @@ def phase_probe_equals_plain(card, dev):
     return err, kernel_ms, plain_ms, work
 
 
+def verify_sass_sizes(text):
+    """``{"<lanes, leg>": instructions}`` of the verify's group kernels in a
+    ``cuobjdump -sass`` dump."""
+    import re
+    sizes = {}
+    for body in text.split("Function : ")[1:]:
+        m = re.match(r"\S*verify_group_kernelILi(\d+)ELi(\d)E", body)
+        if m:
+            sizes[f"<{m[1]}, {m[2]}>"] = len(re.findall(
+                r"^\s+/\*[0-9a-f]{4}\*/\s+\S", body, re.M))
+    return dict(sorted(sizes.items()))
+
+
 def phase_sass(card):
     from defuse_tpu_torch.ops import _build
     from defuse_tpu_torch.ops import split_dp_census as sc
@@ -553,6 +679,12 @@ def phase_sass(card):
                   f"census {class_row(want)}; opcodes {lp['opcodes']}")
         bad += [f"probe {mix} {m}" for m in
                 sc.census_mismatches(want, lp["counts"])]
+    text = _build.sass("verify")
+    (OUT / "verify.sass").write_text(text)
+    say(card, "SASS verify, static instructions of verify_group_kernel<lanes, "
+              f"leg> (0 full, 1 gather, 2 compute): {verify_sass_sizes(text)}; "
+              "<8, leg> is straight-line code, so its count is a warp's "
+              "instructions for 32 candidates")
     text = _build.sass("split_dp")
     (OUT / "split_dp.sass").write_text(text)
     lib = _build.load("split_dp")
@@ -689,8 +821,7 @@ def main() -> int:
         # --- phase 5: end to end -----------------------------------------
         screen_launches = phase_end_to_end(card, work, dataset)
         # --- phase 6: verify kernel == plain -----------------------------
-        err_verify, verify_ms, verify_plain_ms, verify_work = \
-            phase_verify(card, dev, rng)
+        err_verify, verify_shapes = phase_verify(card, dev, rng)
         # --- phase 7: frontend -------------------------------------------
         verify_launches = phase_frontend(card, work, dataset)
     # --- phase 8: probe and roofline -------------------------------------
@@ -702,15 +833,13 @@ def main() -> int:
     # --- bounds: least bytes at the memory rate, least operations at the
     # probe's issue rates, whichever is larger --------------------------
     from defuse_tpu_torch.ops import split_dp_census as sc
-    from defuse_tpu_torch.ops.verify_cuda import OPS_PER_WORD
     cost, cost16 = probe["ns_per_warp_instr"], probe["ns_per_warp_instr_16x2"]
     screen_bound, screen_by = bound(
         main_work["bytes"], sc.screen_bound_ms(main_work["cells"], cost16))
     scale_bound, _by = bound(
         scale_work["bytes"], sc.screen_bound_ms(scale_work["cells"], cost16))
-    verify_bound, verify_by = bound(
-        verify_work["bytes"],
-        verify_work["words"] * OPS_PER_WORD / sc.WARP * cost["alu"] / 1e6)
+    verify_bounds(card, verify_shapes, cost["alu"])
+    on_path = verify_shapes["B"]  # the order the frontend sends
     mix_ns = {"alu16": cost16["alu"], "dpx16": cost16["dpx"]}
     probe_bound, probe_by = bound(probe_work["bytes"], sum(
         probe_work["warps"] * probe_work["steps"] * n * mix_ns.get(
@@ -734,9 +863,10 @@ def main() -> int:
         "source": "defuse_tpu_torch/csrc/verify.cu",
         "replaces": "defuse_tpu/ops/verify_batch.py:86",
         "launches": verify_launches["verify_packed3"],
-        "max_abs_err": err_verify, "ms": verify_ms,
-        "plain_ms": verify_plain_ms, "bound_ms": verify_bound,
-        "bound_by": verify_by, "library_ms": None}, {
+        "max_abs_err": err_verify, "ms": on_path["ms"],
+        "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
+        "bound_by": on_path["bound_by"], "library_ms": None,
+        "shapes": verify_shapes}, {
         "name": "issue_probe", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/issue_probe.cu",
         "replaces": "defuse_tpu/ops/split_dp_census.py:143",

@@ -105,7 +105,8 @@ def verify_plane(codes, device) -> torch.Tensor:
 def verify_operands(codes, cand_pos, reads_codes, read_idx, read_lens,
                     device, ref3=None):
     """(ref3, word10, lane10, reads3, read_idx, read_lens): the operands of
-    ``ops.verify_cuda.verify_packed3`` on ``device``, all int32.
+    ``ops.verify_cuda.verify_packed3`` on ``device``, int32 but for
+    ``lane10``, which is uint8.
 
     ``codes`` is the reference (``SeedIndex.codes``), ``cand_pos`` the
     candidates' global starts, ``reads_codes`` (B, L) the reads' codes and
@@ -126,7 +127,7 @@ def verify_operands(codes, cand_pos, reads_codes, read_idx, read_lens,
     starts = np.clip(np.asarray(cand_pos, np.int64), 0,
                      max(0, len(codes) - 1))
     word10 = (starts // BASES_PER_WORD).astype(np.int32)
-    lane10 = (starts % BASES_PER_WORD).astype(np.int32)
+    lane10 = (starts % BASES_PER_WORD).astype(np.uint8)
     read_idx = _int32("read_idx", read_idx, len(starts))
     _in_range("read_idx", read_idx, 0, B - 1)
     read_lens = _int32("read_lens", read_lens, B)

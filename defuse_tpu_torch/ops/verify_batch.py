@@ -6,7 +6,8 @@ step counts, for every candidate end-to-end placement of a read, the
 mismatching bases of the reference window (no gaps).  The reference plane
 and the reads are packed 10 bases of 3 bits to a word (N = 4 fits, so
 N == N compares equal), and a candidate start is split into
-(word10, lane10) = (start // 10, start % 10).  ``verify_packed3_ref`` is
+(word10, lane10) = (start // 10, start % 10), int32 and uint8.
+``verify_packed3_ref`` is
 the plain version of the CUDA kernel in ``csrc/verify.cu``
 (``ops/verify_cuda.py``); the CPU tests run it, and ``chip_smoke.py``
 holds the kernel against it on the card.
@@ -102,14 +103,14 @@ class DeviceVerifier:
     Keeps each reference's packed plane resident on the device, keyed by
     the identity of the host code array (held beside it, so a collected
     array's reused address cannot alias), packs the reads once per call,
-    and verifies the candidates in batches of ``batch``.  Returns the
-    mismatch counts as int64 numpy.  A CUDA device launches the kernel of
-    ``csrc/verify.cu``; ``device="cpu"`` runs the plain version.
+    and verifies all candidates of a call in one launch: the kernel keeps
+    nothing per candidate but its operands and its count.
+    Returns the mismatch counts as int64 numpy.  A CUDA device launches the
+    kernel of ``csrc/verify.cu``; ``device="cpu"`` runs the plain version.
     """
 
-    def __init__(self, device, batch: int = 1 << 17):
+    def __init__(self, device):
         self.device = torch.device(device)
-        self.batch = batch
         self._resident: dict[int, tuple] = {}
 
     def _plane(self, codes):
@@ -123,14 +124,7 @@ class DeviceVerifier:
     def __call__(self, codes, cand_pos, reads_codes, read_idx, read_lens):
         from ..convert import verify_operands
         from .verify_cuda import verify_packed3  # it imports this module
-        ref3, word10, lane10, reads3, ridx, lens = verify_operands(
-            codes, cand_pos, reads_codes, read_idx, read_lens, self.device,
-            ref3=self._plane(codes))
-        L = reads_codes.shape[1]
-        n = word10.shape[0]
-        out = torch.empty(n, dtype=torch.int32, device=self.device)
-        for lo in range(0, n, self.batch):
-            hi = min(lo + self.batch, n)
-            out[lo:hi] = verify_packed3(ref3, word10[lo:hi], lane10[lo:hi],
-                                        reads3, ridx[lo:hi], lens, L)
+        ops = verify_operands(codes, cand_pos, reads_codes, read_idx,
+                              read_lens, self.device, ref3=self._plane(codes))
+        out = verify_packed3(*ops, reads_codes.shape[1])
         return out.cpu().numpy().astype(np.int64)

@@ -397,6 +397,76 @@ def verify_case(seed=7, n_ref=5003, L=53, B=64, C=4096):
     return codes, starts, reads, ridx, lens
 
 
+def verify_genome_case(device, seed=0, n_bases=3_100_000_000,
+                       n_reads=1 << 20, read_len=100, per_read=8):
+    """Packed-verify operands at the size a genome index holds, made on
+    ``device`` from a seeded ``torch.Generator`` (a host array of 3.1e9
+    codes and its packing would take longer than everything that uses it).
+
+    The plane is ``n_bases`` random A/C/G/T (a multiple of 10), packed as
+    ``ops.verify_batch.pack_codes3`` packs.  Each read is cut out of it at a
+    random start and given 0 to 3 mismatches, the j-th in the read's j-th
+    third.  Each read has ``per_read`` candidates: its source window and
+    random starts, sorted by (read, position) as
+    ``SeedIndex.candidates`` hands them over.
+
+    Returns ``(operands, is_source, planted)``: the operands of
+    ``ops.verify_cuda.verify_packed3`` (plane, word10, lane10, packed reads,
+    read_idx, read_lens), a (C,) bool mask of the source windows, and the
+    (n_reads,) mismatches planted in each read, which is the count its
+    source window must get.
+    """
+    from ..ops.verify_batch import BASES_PER_WORD as per_word
+    from ..ops.verify_batch import packed_words
+    if n_bases % per_word or read_len < 3:
+        raise ValueError("n_bases must be a multiple of 10, read_len >= 3")
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(high, shape, dtype=torch.int64):
+        return torch.randint(0, high, shape, dtype=dtype, device=dev,
+                             generator=gen)
+
+    # two random bits a base, spread to the plane's 3-bit slots
+    bits = draw(1 << (2 * per_word), (n_bases // per_word,), torch.int32)
+    ref3 = torch.zeros_like(bits)
+    for j in range(per_word):
+        ref3 |= ((bits >> (2 * j)) & 3) << (3 * j)
+    del bits
+
+    src = draw(n_bases - read_len + 1, (n_reads,))
+    pos = src[:, None] + torch.arange(read_len, device=dev)[None, :]
+    codes = (ref3[pos // per_word] >> (3 * (pos % per_word)).to(torch.int32)) \
+        & 7
+    del pos
+    planted = draw(4, (n_reads,))
+    third = read_len // 3
+    rows = torch.arange(n_reads, device=dev)
+    for j in range(3):
+        at = j * third + draw(third, (n_reads,))
+        other = (codes[rows, at] + 1 + draw(3, (n_reads,), torch.int32)) % 4
+        codes[rows, at] = torch.where(planted > j, other, codes[rows, at])
+    w = packed_words(read_len)
+    padded = torch.zeros((n_reads, w * per_word), dtype=torch.int32,
+                         device=dev)
+    padded[:, :read_len] = codes
+    slots = 3 * torch.arange(per_word, dtype=torch.int32, device=dev)
+    reads3 = (padded.view(n_reads, w, per_word) << slots).sum(
+        dim=2, dtype=torch.int32)
+
+    starts = torch.cat([src[:, None],
+                        draw(n_bases - read_len + 1, (n_reads, per_read - 1))],
+                       dim=1).sort(dim=1).values
+    is_source = (starts == src[:, None]).reshape(-1)
+    starts = starts.reshape(-1)
+    ops = (ref3, (starts // per_word).to(torch.int32),
+           (starts % per_word).to(torch.uint8), reads3,
+           rows.to(torch.int32).repeat_interleave(per_read),
+           torch.full((n_reads,), read_len, dtype=torch.int32, device=dev))
+    return ops, is_source, planted
+
+
 def frontend_config(ds, tmp, **overrides):
     """A ``Config`` naming the references of the synthetic dataset ``ds``,
     written under ``tmp``: its genome, its gene models and its transcripts

@@ -12,11 +12,17 @@ import pytest
 import torch
 
 from defuse_tpu_torch.convert import verify_operands
-from defuse_tpu_torch.ops import split_dp_census, verify_cuda
+from defuse_tpu_torch.ops import split_dp_census, verify_cuda, verify_roofline
 from defuse_tpu_torch.ops.verify_batch import (DeviceVerifier,
                                                verify_packed3_ref)
 
-from torch_cases import verify_case
+from torch_cases import verify_case, verify_genome_case
+
+# read lengths at both sides of every group width's edge: W + 1 = 8 | 9
+# (8 and 16 lanes), 16 | 17 (16 and 32 lanes), 32 | 33 (32 lanes and the
+# kernel that walks the row), and rows of more than two warps' words
+GROUP_EDGES = {1: 8, 10: 8, 50: 8, 53: 8, 70: 8, 71: 16, 100: 16, 150: 16,
+               151: 32, 310: 32, 311: 0, 700: 0}
 
 
 @pytest.fixture
@@ -42,6 +48,56 @@ def test_verify_kernel_matches_plain_on_card(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L", sorted(GROUP_EDGES))
+@pytest.mark.parametrize("order", ["as_drawn", "sorted"])
+def test_verify_kernel_every_group_width_on_card(cuda_device, L, order):
+    """Every lane, the plane's last words, reads of length 0 and N runs
+    (``verify_case``) at each group width; a candidate count that leaves
+    the last warp partly filled; candidates as drawn and sorted by (read,
+    position)."""
+    assert verify_cuda.group_lanes(L) == GROUP_EDGES[L]
+    codes, starts, reads, ridx, lens = verify_case(seed=L, L=L, C=4099)
+    if order == "sorted":
+        by = np.lexsort((starts, ridx))
+        starts, ridx = starts[by], ridx[by]
+    ops = verify_operands(codes, starts, reads, ridx, lens, cuda_device)
+    want = verify_packed3_ref(*ops, L)
+    assert int(want.max()) > 0 and int((want == 0).sum()) > 0
+    torch.testing.assert_close(verify_cuda.verify_packed3(*ops, L), want,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [50, 100, 200, 400])
+@pytest.mark.parametrize("leg", ["gather", "compute"])
+def test_verify_legs_match_plain_on_card(cuda_device, L, leg):
+    codes, starts, reads, ridx, lens = verify_case(seed=L + 1, L=L, C=1500)
+    ops = verify_operands(codes, starts, reads, ridx, lens, cuda_device)
+    verify_cuda.reset_launches()
+    got = verify_roofline.verify_leg(leg, *ops, L)
+    cpu = tuple(t.cpu() for t in ops)
+    torch.testing.assert_close(got.cpu(),
+                               verify_roofline.verify_leg(leg, *cpu, L),
+                               rtol=0, atol=0)
+    assert verify_cuda.LAUNCHES == \
+        dict.fromkeys(verify_cuda.LAUNCHES, 0) | {f"verify_{leg}": 1}
+
+
+@pytest.mark.cuda
+def test_verify_genome_case_on_card(cuda_device):
+    """The device-made case at a small size: the source windows get their
+    planted mismatches from the kernel, and the kernel equals the plain
+    version on all candidates."""
+    ops, is_source, planted = verify_genome_case(
+        cuda_device, seed=1, n_bases=1_000_000, n_reads=4096, read_len=100)
+    got = verify_cuda.verify_packed3(*ops, 100)
+    torch.testing.assert_close(got, verify_packed3_ref(*ops, 100), rtol=0,
+                               atol=0)
+    assert torch.equal(got[is_source].long(),
+                       planted[ops[4].long()[is_source]])
+
+
+@pytest.mark.cuda
 def test_verify_launches_are_counted_on_card(cuda_device):
     verify_cuda.reset_launches()
     codes, starts, reads, ridx, lens = verify_case(seed=3)
@@ -51,12 +107,12 @@ def test_verify_launches_are_counted_on_card(cuda_device):
                                        ops[3], ops[4][:0], ops[5],
                                        reads.shape[1])
     assert empty.shape == (0,)
-    verifier = DeviceVerifier(cuda_device, batch=1000)
-    got = verifier(codes, starts, reads, ridx, lens)
+    want = verify_packed3_ref(*ops, reads.shape[1]).cpu().numpy()
+    verify_cuda.reset_launches()
+    got = DeviceVerifier(cuda_device)(codes, starts, reads, ridx, lens)
     assert got.dtype == np.int64
-    np.testing.assert_array_equal(
-        got, verify_packed3_ref(*ops, reads.shape[1]).cpu().numpy())
-    assert verify_cuda.LAUNCHES == {"verify_packed3": 1 + 5}
+    np.testing.assert_array_equal(got, want)
+    assert verify_cuda.LAUNCHES["verify_packed3"] == 1
 
 
 @pytest.mark.cuda
@@ -67,6 +123,8 @@ def test_verify_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     L = reads.shape[1]
     with pytest.raises(TypeError, match="ref3"):
         verify_cuda.verify_packed3(ref3.long(), w10, l10, reads3, ri, rl, L)
+    with pytest.raises(TypeError, match="lane10"):
+        verify_cuda.verify_packed3(ref3, w10, l10.int(), reads3, ri, rl, L)
     with pytest.raises(ValueError, match="contiguous"):
         verify_cuda.verify_packed3(ref3, w10[::2], l10[::2], reads3,
                                    ri[::2], rl, L)
