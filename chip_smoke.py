@@ -44,7 +44,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the census of the probe's loops and of every row loop of the screen
    kernels against the machine code (``cuobjdump -sass``), within 20% per
    class; the screen's roofline (its time against the work-based bound
-   and against its own census), with the probe's launches counted.
+   and against its own census), with the probe's launches counted;
+9. the whole ``run``: ``create-ref`` and then ``run`` through
+   ``defuse_tpu_torch.cli.main.main`` on the bench dataset's raw fastqs
+   (92,800 pairs, 96 planted fusions; genome, gene models and repeats
+   written by ``utils.synth.write_run_config``), once on the card and once
+   with ``--no-device``: results, annotations and discover artifacts
+   byte-identical between the two, every planted gene pair in
+   ``results.classify.tsv``, ``split_dp_impl == "cuda"``, the screen's
+   launches counted, and the stage seconds of both runs;
+10. discover without the native library, in a child process with
+   ``DEFUSE_NO_NATIVE=1``, on the dataset cut to NO_NATIVE_FUSIONS fusions
+   and NO_NATIVE_BACKGROUND background pairs (the Python EM and the Python
+   realign take seconds there): artifacts byte-identical to the native
+   route's on the same input, ``rowmax_kernel``'s launches counted, the
+   kernel against its plain version and timed on the route's own operands,
+   ``dp_tie_columns`` on the card equal to the same call on CPU tensors bit
+   for bit and timed;
+11. ``cohort``: the bench reads dealt out into two libraries, through
+   ``cli.main.main(["cohort", ...])`` with two workers sharing the card;
+   both libraries ``ok``, ``cohort_fusions.tsv`` not empty.
 
 All kernel comparisons are exact (integer results; tolerance 0).  Each
 kernel's bound is the larger of its least bytes over the card's memory
@@ -59,7 +78,9 @@ main path sends, with all three shapes under ``shapes``), then
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import subprocess
 import sys
 import tempfile
 import time
@@ -333,6 +354,18 @@ ARTIFACTS = ("clusters", "clusters.sc", "clusters.sc.regions",
              "splitreads.predalign")
 
 
+def discover_kwargs(paths):
+    from defuse_tpu_torch.utils import synth
+    return dict(spanning=str(paths["spanning"]),
+                improper=str(paths["improper"]),
+                fastq1=str(paths["fastq1"]), fastq2=str(paths["fastq2"]),
+                reference=str(paths["reference"]), exons=str(paths["exons"]),
+                fragment_mean=synth.MEAN, fragment_stddev=synth.STD,
+                precision=synth.PREC, min_cluster_size=synth.MINCL,
+                min_read_length=synth.MINREAD,
+                max_read_length=synth.MAXREAD)
+
+
 def bench_dataset(card, work):
     from defuse_tpu_torch.utils import synth
     t0 = time.time()
@@ -344,17 +377,10 @@ def bench_dataset(card, work):
 
 def phase_end_to_end(card, work, dataset):
     from defuse_tpu_torch.ops import split_dp_cuda
-    from defuse_tpu_torch.utils import synth
     from defuse_tpu_torch.pipeline.discover import discover_fusions
 
     _ds, paths, n_pairs = dataset
-    kw = dict(spanning=str(paths["spanning"]),
-              improper=str(paths["improper"]),
-              fastq1=str(paths["fastq1"]), fastq2=str(paths["fastq2"]),
-              reference=str(paths["reference"]), exons=str(paths["exons"]),
-              fragment_mean=synth.MEAN, fragment_stddev=synth.STD,
-              precision=synth.PREC, min_cluster_size=synth.MINCL,
-              min_read_length=synth.MINREAD, max_read_length=synth.MAXREAD)
+    kw = discover_kwargs(paths)
     t0 = time.time()
     discover_fusions(outdir=str(work / "host"), use_device=False, **kw)
     t_host = time.time() - t0
@@ -767,6 +793,295 @@ def phase_roofline(card, dev):
     return launches, probe
 
 
+# --- phase 9 ----------------------------------------------------------------
+
+IMPL = {"cuda": "cuda", "cpu": "torch"}  # metrics' split_dp_impl by device
+RUN_ARTIFACTS = ("results.tsv", "results.classify.tsv",
+                 "results.filtered.tsv", "annotations",
+                 "concordant.read.stats") + ARTIFACTS
+RUN_STAGES = ("frontend", "read stats", "covariance samples", "discover",
+              "pvalues", "breakseq", "annotation", "denovo",
+              "collate+classify")
+
+
+def raw_fastqs(work):
+    """The bench dataset's fastqs as ``write_dataset`` wrote them (the
+    renamed copies under ``ing/`` are the discover phase's)."""
+    return str(work / "reads.1.fastq"), str(work / "reads.2.fastq")
+
+
+class StageClock:
+    """Wall seconds of the stages that write no metrics of their own: the
+    frontend (``align_reads``) and the Runner's stages (read stats, calccov),
+    timed from outside while a ``run`` goes through the command line."""
+
+    def __enter__(self):
+        from defuse_tpu_torch.align import frontend
+        from defuse_tpu_torch.pipeline.runner import Runner
+        self.seconds = {}
+        self._saved = (frontend.align_reads, Runner.run)
+        align_reads, run = self._saved
+
+        def timed_align(*args, **kw):
+            t0 = time.time()
+            try:
+                return align_reads(*args, **kw)
+            finally:
+                self.seconds["frontend"] = time.time() - t0
+
+        def timed_run(runner, name, *args, **kw):
+            t0 = time.time()
+            try:
+                return run(runner, name, *args, **kw)
+            finally:
+                self.seconds[name] = time.time() - t0
+
+        frontend.align_reads, Runner.run = timed_align, timed_run
+        return self
+
+    def __exit__(self, *exc):
+        from defuse_tpu_torch.align import frontend
+        from defuse_tpu_torch.pipeline.runner import Runner
+        frontend.align_reads, Runner.run = self._saved
+
+    def stages(self, out):
+        """This clock's stages and those of the run's ``metrics.json``."""
+        both = dict(self.seconds) | {s["stage"]: s["seconds"] for s in
+                                     json.loads((out / "metrics.json")
+                                                .read_text())["stages"]}
+        return {k: round(both[k], 3) for k in RUN_STAGES if k in both}
+
+
+def phase_run(card, work, dataset, device):
+    from defuse_tpu_torch.cli.main import main as cli
+    from defuse_tpu_torch.ops import split_dp_cuda, verify_cuda
+    from defuse_tpu_torch.utils import synth
+
+    ds, _paths, n_pairs = dataset
+    config = str(synth.write_run_config(ds, work / "run_refs"))
+    data = str(work / "run_dataset")
+    t0 = time.time()
+    check(cli(["create-ref", "-c", config, "-d", data]) == 0, "create-ref")
+    t_ref = time.time() - t0
+    fq1, fq2 = raw_fastqs(work)
+    common = ["run", "-c", config, "-d", data, "-1", fq1, "-2", fq2,
+              "-n", "smoke"]
+
+    split_dp_cuda.reset_launches()
+    verify_cuda.reset_launches()
+    t0 = time.time()
+    with StageClock() as card_clock:
+        check(cli(common + ["-o", str(work / "run_card"), "--device",
+                            device]) == 0, "run on the card")
+    t_card = time.time() - t0
+    launches = dict(split_dp_cuda.LAUNCHES) | dict(verify_cuda.LAUNCHES)
+    t0 = time.time()
+    with StageClock() as host_clock:
+        check(cli(common + ["-o", str(work / "run_host"), "--no-device"])
+              == 0, "run --no-device")
+    t_host = time.time() - t0
+
+    for name in RUN_ARTIFACTS:
+        a = (work / "run_card" / name).read_bytes()
+        check(a == (work / "run_host" / name).read_bytes(),
+              f"run: {name} differs between the card and --no-device")
+        check(len(a) > 0, f"run: {name} is empty")
+    counters = json.loads((work / "run_card" / "metrics.discover.json")
+                          .read_text())["counters"]
+    check(counters.get("split_dp_impl") == IMPL[device],
+          f"run: split_dp_impl is {counters.get('split_dp_impl')!r}")
+    check(launches["split_dp_screen"] >= 1, "run: screen never launched")
+    rows = [r.split("\t") for r in (work / "run_card" /
+            "results.classify.tsv").read_text().splitlines()]
+    g1, g2 = rows[0].index("gene1"), rows[0].index("gene2")
+    found = {frozenset((r[g1], r[g2])) for r in rows[1:]}
+    planted = synth.planted_pairs(ds)
+    missing = sorted(tuple(sorted(p)) for p in planted - found)
+    check(not missing, f"run: planted fusions not called: {missing}")
+    n_filtered = len((work / "run_card" / "results.filtered.tsv")
+                     .read_text().splitlines()) - 1
+    check_no_reference_modules()
+    say(card, f"run on {n_pairs} pairs: card {t_card:.3f} s "
+              f"({n_pairs / t_card:.0f} pairs/s), --no-device {t_host:.3f} "
+              f"s; create-ref {t_ref:.3f} s; {len(RUN_ARTIFACTS)} artifacts "
+              f"byte-identical; {len(planted)}/{len(planted)} planted gene "
+              f"pairs among {len(rows) - 1} classified rows, {n_filtered} "
+              f"past the probability threshold; launches {launches}; screen "
+              f"{int(counters['screen_candidates'])} candidates, "
+              f"{int(counters['screen_survivors'])} survivors")
+    say(card, "run stages on the card (s): "
+              f"{card_clock.stages(work / 'run_card')}")
+    say(card, "run stages --no-device (s): "
+              f"{host_clock.stages(work / 'run_host')}")
+    return launches
+
+
+# --- phase 10 ---------------------------------------------------------------
+
+NO_NATIVE_FUSIONS, NO_NATIVE_BACKGROUND = 12, 3000
+
+
+def no_native_child(work, device):
+    """Phase 10's child process (``DEFUSE_NO_NATIVE=1``): discover on the
+    cut dataset under ``work`` through the Python EM and the Python
+    realign, the row maxima and tie columns on ``device``.  Prints one JSON
+    line: launches, the kernel against its plain version and both timed on
+    the route's own operands, ``dp_tie_columns`` on ``device`` against the
+    same call on CPU tensors."""
+    from defuse_tpu_torch.cluster import native
+    from defuse_tpu_torch.ops import split_dp_batch, split_dp_cuda
+    from defuse_tpu_torch.pipeline import discover
+    check(not native.available(), "the child has the native library")
+    paths = {k: work / v for k, v in (
+        ("spanning", "spanning.compact"), ("improper", "improper.sam"),
+        ("fastq1", "reads.1.fastq"), ("fastq2", "reads.2.fastq"),
+        ("reference", "reference.fa"), ("exons", "cdna.regions"))}
+    seen = {"rowmax": [], "tie": []}
+    rowmax, tie = discover.dp_row_maxima_cuda, split_dp_batch.dp_tie_columns
+    discover.dp_row_maxima_cuda = \
+        lambda *ops: seen["rowmax"].append(ops) or rowmax(*ops)
+    split_dp_batch.dp_tie_columns = \
+        lambda *ops: seen["tie"].append(ops) or tie(*ops)
+    split_dp_cuda.reset_launches()
+    t0 = time.time()
+    discover.discover_fusions(outdir=str(work / "no_native"), device=device,
+                              em_mode="oracle", **discover_kwargs(paths))
+    seconds = time.time() - t0
+    launches = dict(split_dp_cuda.LAUNCHES)
+    check(len(seen["rowmax"]) == 1 and len(seen["tie"]) == 2,
+          f"route called rowmax {len(seen['rowmax'])} and dp_tie_columns "
+          f"{len(seen['tie'])} times")
+
+    ops = seen["rowmax"][0]
+    want = split_dp_batch.dp_row_maxima(*ops)
+    err = int((rowmax(*ops) - want).abs().max())
+    check(int(want.max()) > 0, "no-native: no row clears the anchor")
+    ref_lens, read_lens = (t.cpu().numpy().astype(np.int64)
+                           for t in (ops[1], ops[3]))
+    rec = {"seconds": seconds, "launches": launches, "err": err,
+           "instances": int(ops[0].shape[0]),
+           "R": int(ops[0].shape[1]), "L": int(ops[2].shape[1]),
+           "ms": time_ms(lambda: rowmax(*ops), 10),
+           "plain_ms": time_ms(
+               lambda: split_dp_batch.dp_row_maxima(*ops), 2),
+           "cells": int((read_lens * (ref_lens + 1)).sum()),
+           "bytes": sum(t.numel() * t.element_size() for t in ops)
+           + 4 * want.numel(), "tie": []}
+    for ops in seen["tie"]:
+        got = tie(*ops)
+        cpu = tie(*(t.cpu() for t in ops))
+        check(all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu)),
+              "dp_tie_columns on the card differs from CPU tensors")
+        check(bool(cpu[1].any()), "dp_tie_columns: no tie column set")
+        rec["tie"].append({"winners": int(ops[0].shape[0]),
+                           "rows": int(ops[4].shape[1]),
+                           "ms": time_ms(lambda: tie(*ops), 3)})
+    check_no_reference_modules()
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_no_native(card, work, device):
+    from defuse_tpu_torch.pipeline.discover import discover_fusions
+    from defuse_tpu_torch.utils import synth
+    cut = work / "cut"
+    _ds, paths, n_pairs = synth.build_dataset(cut, NO_NATIVE_FUSIONS,
+                                              NO_NATIVE_BACKGROUND)
+    # the child parses the fastqs in Python: hand both routes the files as
+    # written, not the native ingest's renamed copies
+    paths["fastq1"], paths["fastq2"] = raw_fastqs(cut)
+    t0 = time.time()
+    discover_fusions(outdir=str(cut / "native"), device=device,
+                     **discover_kwargs(paths))
+    t_native = time.time() - t0
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--no-native-child",
+         str(cut), device], env=dict(os.environ, DEFUSE_NO_NATIVE="1"),
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    check(proc.returncode == 0,
+          f"no-native child failed: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ARTIFACTS:
+        check((cut / "native" / name).read_bytes() ==
+              (cut / "no_native" / name).read_bytes(),
+              f"no-native: {name} differs from the native route")
+    check(len((cut / "no_native" / "splitreads.seq").read_bytes()) > 0,
+          "no-native: no fusion sequences produced")
+    counters = json.loads((cut / "no_native" / "metrics.discover.json")
+                          .read_text())
+    check(counters["counters"].get("split_dp_impl") == IMPL[device],
+          "no-native: split_dp_impl")
+    check(rec["launches"]["split_dp_rowmax"] >= 1,
+          "no-native: rowmax kernel never launched")
+    check(rec["err"] == 0, "rowmax kernel differs from plain on the "
+                           "route's operands")
+    stages = " ".join(f"{s['stage'].removeprefix('discover:')}="
+                      f"{s['seconds']}" for s in counters["stages"])
+    say(card, f"discover without the native library on {n_pairs} pairs "
+              f"({NO_NATIVE_FUSIONS} fusions): {rec['seconds']:.3f} s, "
+              f"native route {t_native:.3f} s; {len(ARTIFACTS)} artifacts "
+              f"byte-identical; launches {rec['launches']}")
+    say(card, f"no-native stages (s): {stages}")
+    say(card, f"rowmax_kernel on the route's operands ({rec['instances']} "
+              f"instances, R={rec['R']}, L={rec['L']}): {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.3f} ms, max_abs_err {rec['err']}; "
+              f"dp_tie_columns (torch, == CPU tensors bit for bit): " +
+              "; ".join(f"{t['winners']} winners x {t['rows']} rows "
+                        f"{t['ms']:.3f} ms" for t in rec["tie"]))
+    return rec
+
+
+# --- phase 11 ---------------------------------------------------------------
+
+def phase_cohort(card, work, dataset, device):
+    from defuse_tpu_torch.cli.main import main as cli
+    from defuse_tpu_torch.utils import synth
+    _ds, _paths, n_pairs = dataset
+    libs = ("libA", "libB")
+    for end, src in zip("12", raw_fastqs(work)):
+        synth.deal_fastq(src, [work / f"{lib}.{end}.fastq" for lib in libs])
+    manifest = work / "cohort.tsv"
+    manifest.write_text("".join(
+        f"{lib}\t{work}/{lib}.1.fastq\t{work}/{lib}.2.fastq\n"
+        for lib in libs))
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = str(REPO) + (os.pathsep + env_path
+                                            if env_path else "")
+    try:
+        t0 = time.time()
+        check(cli(["cohort", "-c", str(work / "run_refs" / "config.txt"),
+                   "-d", str(work / "run_dataset"), "-m", str(manifest),
+                   "-o", str(work / "cohort"), "-w", "2", "--device",
+                   device]) == 0, "cohort")
+        seconds = time.time() - t0
+    finally:
+        if env_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    summary = [ln.split("\t") for ln in (work / "cohort" /
+               "cohort_summary.tsv").read_text().splitlines()[1:]]
+    check([r[:2] for r in summary] == [[lib, "ok"] for lib in libs],
+          f"cohort summary: {summary}; " + " | ".join(
+              (work / "cohort" / lib / "cohort.log").read_text()[-1500:]
+              for lib in libs))
+    fusions = (work / "cohort" / "cohort_fusions.tsv").read_text() \
+        .splitlines()
+    check(len(fusions) > 1, "cohort_fusions.tsv is empty")
+    for lib in libs:
+        counters = json.loads((work / "cohort" / lib /
+                               "metrics.discover.json").read_text())
+        check(counters["counters"].get("split_dp_impl") == IMPL[device],
+              f"cohort {lib}: split_dp_impl")
+    recurrent = len((work / "cohort" / "cohort_recurrent.tsv").read_text()
+                    .splitlines()) - 1
+    say(card, f"cohort of {len(libs)} libraries ({n_pairs // 2} pairs each, "
+              f"2 workers sharing the card): {seconds:.3f} s; both ok "
+              f"(n_fusions {[r[2] for r in summary]}, seconds "
+              f"{[r[3] for r in summary]}); {len(fusions) - 1} pooled "
+              f"fusions, {recurrent} gene pairs in cohort_recurrent.tsv")
+
+
 def bound(work_bytes, ops_ms):
     """(bound ms, what bounds): the larger of the least bytes over the
     card's memory rate and the least operations' time."""
@@ -776,6 +1091,8 @@ def bound(work_bytes, ops_ms):
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--no-native-child":
+        return no_native_child(pathlib.Path(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -824,6 +1141,12 @@ def main() -> int:
         err_verify, verify_shapes = phase_verify(card, dev, rng)
         # --- phase 7: frontend -------------------------------------------
         verify_launches = phase_frontend(card, work, dataset)
+        # --- phase 9: the whole run --------------------------------------
+        run_launches = phase_run(card, work, dataset, "cuda")
+        # --- phase 10: discover without the native library ---------------
+        no_native = phase_no_native(card, work, "cuda")
+        # --- phase 11: cohort --------------------------------------------
+        phase_cohort(card, work, dataset, "cuda")
     # --- phase 8: probe and roofline -------------------------------------
     err_probe, probe_ms, probe_plain_ms, probe_work = \
         phase_probe_equals_plain(card, dev)
@@ -846,8 +1169,22 @@ def main() -> int:
             mix, cost[k]) for mix in sc.MIXES
         for k, n in sc.MIX_STEP[mix].items()) / 1e6)
 
-    say(card, f"rowmax entry (dp_row_maxima_cuda, off the discover path): "
-              f"max_abs_err {err_rowmax}")
+    rowmax_bound, rowmax_by = bound(
+        no_native["bytes"], sc.screen_bound_ms(no_native["cells"], cost16))
+    rowmax = {"launches": no_native["launches"]["split_dp_rowmax"],
+              "max_abs_err": max(err_rowmax, no_native["err"]),
+              "instances": no_native["instances"], "R": no_native["R"],
+              "L": no_native["L"], "cells": no_native["cells"],
+              "ms": no_native["ms"], "plain_ms": no_native["plain_ms"],
+              "bound_ms": rowmax_bound, "bound_by": rowmax_by,
+              "library_ms": None, "dp_tie_columns": no_native["tie"]}
+    say(card, f"rowmax_kernel on the no-native route: {rowmax['launches']} "
+              f"launch for {rowmax['instances']} instances, "
+              f"{rowmax['ms']:.4f} ms, bound {rowmax_bound:.4f} ms by "
+              f"{rowmax_by} ({100 * rowmax_bound / rowmax['ms']:.1f}% of "
+              f"bound, {rowmax['cells']} cells), plain "
+              f"{rowmax['plain_ms']:.3f} ms, max_abs_err "
+              f"{rowmax['max_abs_err']}")
     say(card, f"screen at scale: {scale_ms:.3f} ms, bound {scale_bound:.3f} "
               f"ms ({100 * scale_bound / scale_ms:.1f}% of bound, "
               f"{scale_work['cells']} cells)")
@@ -855,14 +1192,23 @@ def main() -> int:
         "name": "split_dp_screen", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/split_dp.cu",
         "replaces": "defuse_tpu/ops/split_dp_pallas.py:222",
-        "launches": screen_launches["split_dp_screen"],
+        "launches": screen_launches["split_dp_screen"]
+        + run_launches["split_dp_screen"],
+        "launches_by_path": {
+            "discover": screen_launches["split_dp_screen"],
+            "run": run_launches["split_dp_screen"]},
         "max_abs_err": err_screen, "ms": main_ms,
         "plain_ms": main_plain_ms, "bound_ms": screen_bound,
-        "bound_by": screen_by, "library_ms": None}, {
+        "bound_by": screen_by, "library_ms": None,
+        "rowmax_kernel": rowmax}, {
         "name": "verify_packed3", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/verify.cu",
         "replaces": "defuse_tpu/ops/verify_batch.py:86",
-        "launches": verify_launches["verify_packed3"],
+        "launches": verify_launches["verify_packed3"]
+        + run_launches["verify_packed3"],
+        "launches_by_path": {
+            "align_reads": verify_launches["verify_packed3"],
+            "run": run_launches["verify_packed3"]},
         "max_abs_err": err_verify, "ms": on_path["ms"],
         "plain_ms": on_path["plain_ms"], "bound_ms": on_path["bound_ms"],
         "bound_by": on_path["bound_by"], "library_ms": None,

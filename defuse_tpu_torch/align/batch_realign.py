@@ -218,11 +218,13 @@ def realign_candidates_screened(realigner,
 
 
 def realign_candidates(realigner, candidates: list[Candidate],
-                       rowmax_fn, native_enum: bool = False) -> list[SplitRow]:
+                       rowmax_fn, native_enum: bool = False,
+                       device="cuda") -> list[SplitRow]:
     """Stages 2+3.  ``rowmax_fn(refs_p, ref_lens, reads_p, read_lens)``
     computes DP row maxima on numpy operands.  With
     ``native_enum`` the tie-column enumeration of screen survivors runs
-    in native C++ instead of a second device round trip."""
+    in native C++ instead of a second device round trip; without it the
+    enumeration is ``dp_tie_columns`` on ``device``."""
     if not candidates:
         return []
 
@@ -287,12 +289,12 @@ def realign_candidates(realigner, candidates: list[Candidate],
     cols1_map = _device_tie_columns(
         [ref1s[b] for b in win_idx], [reads[b] for b in win_idx],
         [sorted(wanted1[b]) for b in win_idx], win_idx, R, max_rows,
-        r1l[win_idx])
+        r1l[win_idx], device)
     cols2_map = _device_tie_columns(
         [ref2s[b][::-1] for b in win_idx],
         [reads[b][::-1] for b in win_idx],
         [sorted(wanted2[b]) for b in win_idx], win_idx, R, max_rows,
-        r2l[win_idx])
+        r2l[win_idx], device)
 
     out_rows: list[SplitRow] = []
     for (b, max_score, ks) in winners:
@@ -333,13 +335,37 @@ def _pad_len(x: int, mult: int = 128) -> int:
 
 
 def _device_tie_columns(refs, reads, wanted_rows, win_idx, R, max_rows,
-                        ref_lens_sub):
-    """Tie columns via ``ops.split_dp_batch.dp_tie_columns``.
+                        ref_lens_sub, device="cuda"):
+    """Tie columns via ``ops.split_dp_batch.dp_tie_columns`` on ``device``.
     Returns {(original_b, j): [columns]} (anchored-max semantics built
     in: rows whose max is below MIN_SPLIT_SCORE get no columns)."""
-    # the port's ops/split_dp_batch.py has no dp_tie_columns yet (ROADMAP
-    # B4, with the no-native realign of A7); until it has, pass
-    # native_enum=True or use realign_candidates_screened
-    raise NotImplementedError(
-        "dp_tie_columns is not ported (ROADMAP B4/A7): the tie-column "
-        "enumeration runs in the native realigner only (native_enum=True)")
+    from ..convert import tie_operands
+    from ..core.devices import require_cuda
+    from ..ops.split_dp_batch import dp_tie_columns, pad_batch
+
+    B = len(refs)
+    L = _pad_len(max(len(r) for r in reads), 64)
+    refs_p, _rl = pad_batch(refs, R)
+    reads_p, _ql = pad_batch(reads, L)
+    row_sel = np.full((B, max_rows), -1, dtype=np.int32)
+    for i, rows in enumerate(wanted_rows):
+        row_sel[i, :len(rows)] = rows
+    rowmax, packed = dp_tie_columns(*tie_operands(
+        refs_p, _rl, reads_p, _ql, row_sel, require_cuda(device)))
+    packed = np.ascontiguousarray(packed.cpu().numpy())
+    rowmax = rowmax.cpu().numpy()
+    result = {}
+    W = packed.shape[2]
+    bits = np.unpackbits(
+        packed.view(np.uint8).reshape(B, max_rows, W, 4),
+        axis=3, bitorder="little").reshape(B, max_rows, W * 32)
+    for i, rows in enumerate(wanted_rows):
+        b = win_idx[i]
+        n_ref = int(ref_lens_sub[i])
+        for m, j in enumerate(rows):
+            if rowmax[i, m] < MIN_SPLIT_SCORE:
+                result[(b, j)] = []
+            else:
+                result[(b, j)] = np.nonzero(
+                    bits[i, m, :n_ref + 1])[0].tolist()
+    return result

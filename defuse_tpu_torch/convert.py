@@ -8,6 +8,8 @@ sets, the numpy arrays that ``defuse_tpu``'s device calls take.
   Pallas wrapper's static tightening does: they never reach a valid DP
   column, and the kernel's per-lane register width follows the table
   width.
+* ``tie_operands``: the tie-column enumeration's (``dp_tie_columns`` takes
+  them, per-instance flanks and the rows each instance asks for).
 * ``verify_plane`` / ``verify_operands``: the packed candidate
   verification's (``DeviceVerifier`` builds them in ``defuse_tpu``).
 
@@ -81,6 +83,29 @@ def screen_operands(u1p, u1l, u2rp, u2l, ref_idx, reads, read_lens,
     arrays = (u1p[:, :width], u1l, u2rp[:, :width], u2l, ref_idx, reads,
               read_lens, min_scores)
     return _tensors(arrays, device)
+
+
+def tie_operands(refs_p, ref_lens, reads_p, read_lens, row_sel, device):
+    """(refs, ref_lens, reads, read_lens, row_sel) of
+    ``ops.split_dp_batch.dp_tie_columns`` as contiguous tensors on
+    ``device``: uint8 codes, int32 the rest.  Raises for a requested row
+    outside [-1, L] (-1 marks an unused slot)."""
+    refs_p, reads_p = _codes("refs_p", refs_p), _codes("reads_p", reads_p)
+    B, R = refs_p.shape
+    L = reads_p.shape[1]
+    if reads_p.shape[0] != B:
+        raise ValueError(f"reads_p: expected {B} rows, got "
+                         f"{reads_p.shape[0]}")
+    ref_lens = _int32("ref_lens", ref_lens, B)
+    read_lens = _int32("read_lens", read_lens, B)
+    row_sel = np.asarray(row_sel)
+    if row_sel.ndim != 2 or row_sel.shape[0] != B:
+        raise ValueError(f"row_sel: expected ({B}, M), got {row_sel.shape}")
+    _in_range("ref_lens", ref_lens, 0, R)
+    _in_range("read_lens", read_lens, 0, L)
+    _in_range("row_sel", row_sel, -1, L)
+    return _tensors((refs_p, ref_lens, reads_p, read_lens,
+                     row_sel.astype(np.int32, copy=False)), device)
 
 
 def _tensors(arrays, device):

@@ -70,6 +70,65 @@ def dp_row_maxima(refs, ref_lens, reads, read_lens):
     return torch.where(keep, rowmax, torch.zeros_like(rowmax))
 
 
+def dp_tie_columns(refs, ref_lens, reads, read_lens, row_sel):
+    """Tie-column bitmasks for requested DP rows.
+
+    row_sel: (B, M) row indices (-1 for unused slots; 0 names the initial
+    all-zero row).  For each requested row, the anchored row maximum (0
+    below MIN_SPLIT_SCORE) and a bit-packed mask of the valid columns
+    reaching it (``FindMaxRowEntry`` column collection), 32 columns a
+    word, column 32*w + i in bit i of word w.
+
+    Returns (rowmax (B, M) int32, packed (B, M, ceil((R+1)/32)) int32).
+    ``packed`` holds the uint32 bit pattern of the JAX version's words:
+    column 32*w + 31 sets the sign bit, and ``packed.numpy().view(np.uint8)``
+    gives the same bytes.  The words are summed in int64 and narrowed.
+    """
+    B, R = refs.shape
+    L = reads.shape[1]
+    M = row_sel.shape[1]
+    dev = refs.device
+    refs = refs.to(torch.int32)
+    reads = reads.to(torch.int32)
+    ref_lens = ref_lens.to(torch.int32)
+    row_sel = row_sel.to(torch.int32)
+
+    iota_r = torch.arange(R + 1, dtype=torch.int32, device=dev)
+    decay = GAP * iota_r
+    valid = iota_r[None, :] <= ref_lens[:, None]  # (B, R+1)
+    match = torch.tensor(MATCH, dtype=torch.int32, device=dev)
+    mismatch = torch.tensor(MISMATCH, dtype=torch.int32, device=dev)
+    neg = torch.tensor(NEG, dtype=torch.int32, device=dev)
+
+    prev = torch.zeros((B, R + 1), dtype=torch.int32, device=dev)
+    rows = torch.where((row_sel == 0)[..., None], prev[:, None, :],
+                       neg.expand(B, M, R + 1))
+    vert = torch.empty((B, R + 1), dtype=torch.int32, device=dev)
+    for j in range(1, L + 1):
+        sub = torch.where(refs == reads[:, j - 1:j], match, mismatch)
+        vert[:, 0] = GAP * j
+        torch.maximum(prev[:, :-1] + sub, prev[:, 1:] + GAP, out=vert[:, 1:])
+        col = torch.cummax(vert - decay, dim=1).values + decay
+        rows = torch.where((row_sel == j)[..., None], col[:, None, :], rows)
+        prev = col
+
+    masked = torch.where(valid[:, None, :], rows, neg)
+    rowmax = masked.amax(dim=2)
+    anchored = rowmax >= MIN_SPLIT_SCORE
+    rowmax = torch.where(anchored, rowmax, torch.zeros_like(rowmax))
+    tie = (masked == rowmax[..., None]) & anchored[..., None]
+
+    W = (R + 1 + 31) // 32
+    tie_p = torch.nn.functional.pad(tie, (0, W * 32 - (R + 1)))
+    weights = torch.ones(32, dtype=torch.int64, device=dev) \
+        << torch.arange(32, dtype=torch.int64, device=dev)
+    words = (tie_p.reshape(B, M, W, 32).to(torch.int64) * weights).sum(dim=3)
+    # narrow the 0..2^32-1 sums to the int32 of the same low 32 bits
+    packed = torch.where(words >= (1 << 31), words - (1 << 32),
+                         words).to(torch.int32)
+    return rowmax, packed
+
+
 def combine_split_scores(rowmax1, rowmax2, read_lens, min_scores):
     """Split-score search (``SplitReadAligner::GetAlignments`` max phase).
 

@@ -1,13 +1,21 @@
 """Fusion discovery on the card: cluster -> set cover -> split align -> vote.
 
-Counterpart of ``defuse_tpu/pipeline/discover.py`` on its native path,
-with the same stages and byte-identical artifacts.  The host stages are
-the native library and the port's own copy of the host code; the one device
-stage is the split-read DP screen, which runs as the CUDA kernel of
-``ops/split_dp_cuda.py`` (``device="cuda"``) or, only when ``device="cpu"``
-is passed, as its plain PyTorch version.  The screen is exact: it drops
-the candidate reads no split alignment would accept, and the native
-driver realigns the survivors.
+Counterpart of ``defuse_tpu/pipeline/discover.py``, with the same stages
+and byte-identical artifacts, on both of its routes:
+
+* with the native host library, clustering and realignment run in C++ and
+  the one device stage is the split-read DP screen
+  (``ops/split_dp_cuda.screen_candidates``), which drops the candidate
+  reads no split alignment would accept; the native driver realigns the
+  survivors;
+* without it (``DEFUSE_NO_NATIVE=1`` or no compiler), clustering is the
+  port's Python EM and the realign is ``align/batch_realign``: DP row
+  maxima from ``ops/split_dp_cuda.dp_row_maxima_cuda``, tie columns from
+  ``ops/split_dp_batch.dp_tie_columns``.
+
+The device stages run as CUDA kernels (``device="cuda"``) or, only when
+``device="cpu"`` is passed or ``use_device`` is false, as their plain
+PyTorch versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,29 +24,38 @@ import os
 import pathlib
 
 import numpy as np
+import torch
 
-from ..align.batch_realign import _pad_len
+from ..align.batch_realign import (_pad_len, collect_candidates,
+                                   realign_candidates)
 from ..align.tasks import (SplitReadRealigner, create_tasks, evaluate_file,
                            read_align_region_pairs)
 from ..cluster import native
+from ..cluster.discordant import cluster_alignments, write_clusters
 from ..cluster.matepair_em import EMParams
 from ..cluster.setcover import run_setcover_file
 from ..convert import screen_min_scores, screen_operands
 from ..core.devices import require_cuda
 from ..core.exons import ExonRegions
 from ..io.fasta import FastaStore
+from ..io.sam import iter_compact, iter_sam, load_alignments
 from ..ops.split_dp_batch import pad_batch
-from ..ops.split_dp_cuda import screen_candidates
+from ..ops.split_dp_cuda import dp_row_maxima_cuda, screen_candidates
 from ..utils import checks
 from ..utils.profiling import Tracer, device_trace
 from .regions import align_regions_file
 
 
+EM_MODES = ("auto", "native", "oracle")
+
+
 def require_native() -> None:
-    """Build the native host library if needed; raise when it is missing."""
+    """Build the native host library if needed; raise when it is missing.
+    For callers that mean to measure the native route; ``discover_fusions``
+    itself runs without the library."""
     if not native.available():
         raise RuntimeError(
-            "defuse_tpu_torch discover needs the native host library "
+            "the native host library is missing "
             "(bash native/build.sh; DEFUSE_NO_NATIVE must be unset)")
 
 
@@ -51,17 +68,23 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
                      reads_sources=None, device="cuda"):
     """Run discovery into ``outdir``; returns the artifact paths.
 
-    ``use_device`` enables the split-read screen on ``device``
-    (``DEFUSE_DEVICE_SCREEN=off`` disables it too).  Needs the native host
-    library; the mate-pair EM runs natively (``em_mode`` "auto" or
-    "native"), on one process (no ``dist``, no ``reads_sources``).
+    ``use_device`` puts the device stages on ``device``: the split-read
+    screen with the native library (``DEFUSE_DEVICE_SCREEN=off`` disables
+    it), the row maxima and tie columns of the Python realign without it.
+    ``em_mode`` is "auto" (the native EM when the library is built),
+    "native" or "oracle" (the Python EM, exact); without the library "auto"
+    with ``use_device`` would mean the batched device EM, which is not
+    ported (ROADMAP B6/A11) and raises.  One process: ``dist`` with more
+    than one and ``reads_sources`` raise (ROADMAP B7/A12).
     """
-    require_native()
-    if em_mode not in ("auto", "native"):
-        raise ValueError(f"em_mode {em_mode!r}: the port runs the native EM "
-                         "only ('auto' or 'native')")
+    if em_mode not in EM_MODES:
+        raise ValueError(f"em_mode {em_mode!r}: the port runs "
+                         f"{', '.join(EM_MODES)} (the device EM is ROADMAP "
+                         "B6/A11)")
     if (dist is not None and dist.n_proc > 1) or reads_sources:
-        raise ValueError("the port's discover runs on one process")
+        raise NotImplementedError(
+            "the port's discover runs on one process: the distributed tail "
+            "(dist, reads_sources) is not ported (ROADMAP B7/A12)")
     dev = require_cuda(device) if use_device else None
 
     out = pathlib.Path(outdir)
@@ -74,11 +97,20 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     checks.check_spanning_file(spanning)
     params = EMParams(fragment_mean, fragment_stddev, precision,
                       min_cluster_size)
+    have_native = native.available()
 
-    # --- clustering (native parse + bin + filter + EM + emit) -----------
+    # --- clustering -----------------------------------------------------
     clusters_path = out / "clusters"
-    reads_handle = _reads_handle(out, fastq1, fastq2)
-    native.clustermatepairs(spanning, clusters_path, params)
+    reads_handle = _reads_handle(out, fastq1, fastq2) if have_native \
+        else None
+    if em_mode in ("auto", "native") and have_native:
+        # full native file->file driver: parse + bin + filter + EM + emit
+        native.clustermatepairs(spanning, clusters_path, params)
+    else:
+        table = load_alignments(iter_compact(spanning))
+        rows = cluster_alignments(table, params, use_device=use_device,
+                                  em_mode=em_mode)
+        write_clusters(rows, str(clusters_path))
 
     _mark("cluster")
     checks.check_clusters_file(str(clusters_path), min_cluster_size)
@@ -130,41 +162,55 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
 
     _mark("tasks_build")
     split_path = out / "splitreads.alignments"
-    # native driver: fastq + SAM parsing, candidate nomination,
-    # realignment and row emission in C++; the device screen sits between
-    # the two phases
-    cluster_ids = sorted(tasks)
-    flank1s = [tasks[cid].split_align_seq[0] for cid in cluster_ids]
-    flank2s = [tasks[cid].split_align_seq[1] for cid in cluster_ids]
-    driver = native.RealignDriver(
-        improper, reads_handle if reads_handle is not None
-        else (fastq1, fastq2), realigner.binned, cluster_ids,
-        flank1s, flank2s)
-    _mark("realign:driver_build")
-    if os.environ.get("DEFUSE_STAGE_TIMING"):
-        mx = max((max(len(a), len(b)) for a, b in zip(flank1s, flank2s)),
-                 default=0)
-        print(f"[discover] candidates={driver.n_candidates} "
-              f"clusters={len(cluster_ids)} max_flank={mx}", flush=True)
-    survivors = None
-    if os.environ.get("DEFUSE_DEVICE_SCREEN", "auto") == "off":
-        dev = None
-    if dev is not None and driver.n_candidates and cluster_ids:
-        survivors = _screen(driver, flank1s, flank2s, max_read_length, dev,
-                            tracer, _mark)
-    # full realign tail in C++ when possible: emit + sort + breakpoint
-    # vote (byte-identical artifacts; falls back to the Python sort/
-    # evaluate chain below on failure)
     sorted_path = out / "splitreads.alignments.sorted"
     outs = {name: out / f"splitreads.{name}" for name in
             ("seq", "break", "predalign")}
-    native_eval = driver.emit_eval(
-        tasks, cluster_ids, split_path, sorted_path, outs["seq"],
-        outs["break"], outs["predalign"], survivors) is not None
-    if not native_eval:
-        driver.emit(split_path, survivors)
-    _mark("realign:emit")
-    driver.close()
+    native_eval = False
+    if have_native:
+        # native driver: fastq + SAM parsing, candidate nomination,
+        # realignment and row emission in C++; the device screen sits
+        # between the two phases
+        cluster_ids = sorted(tasks)
+        flank1s = [tasks[cid].split_align_seq[0] for cid in cluster_ids]
+        flank2s = [tasks[cid].split_align_seq[1] for cid in cluster_ids]
+        driver = native.RealignDriver(
+            improper, reads_handle if reads_handle is not None
+            else (fastq1, fastq2), realigner.binned, cluster_ids,
+            flank1s, flank2s)
+        _mark("realign:driver_build")
+        if os.environ.get("DEFUSE_STAGE_TIMING"):
+            mx = max((max(len(a), len(b))
+                      for a, b in zip(flank1s, flank2s)), default=0)
+            print(f"[discover] candidates={driver.n_candidates} "
+                  f"clusters={len(cluster_ids)} max_flank={mx}", flush=True)
+        survivors = None
+        if os.environ.get("DEFUSE_DEVICE_SCREEN", "auto") == "off":
+            dev = None
+        if dev is not None and driver.n_candidates and cluster_ids:
+            survivors = _screen(driver, flank1s, flank2s, max_read_length,
+                                dev, tracer, _mark)
+        # full realign tail in C++ when possible: emit + sort + breakpoint
+        # vote (byte-identical artifacts; falls back to the Python sort/
+        # evaluate chain below on failure)
+        native_eval = driver.emit_eval(
+            tasks, cluster_ids, split_path, sorted_path, outs["seq"],
+            outs["break"], outs["predalign"], survivors) is not None
+        if not native_eval:
+            driver.emit(split_path, survivors)
+        _mark("realign:emit")
+        driver.close()
+    else:
+        realigner.add_reads_fastq(fastq1)
+        realigner.add_reads_fastq(fastq2)
+        candidates = collect_candidates(realigner, iter_sam(improper))
+        _mark("realign:collect")
+        dp_dev = dev if dev is not None else torch.device("cpu")
+        split_rows = realign_candidates(
+            realigner, candidates, _rowmax_fn(dp_dev, tracer),
+            device=dp_dev)
+        with open(split_path, "w") as fh:
+            for row in split_rows:
+                fh.write(row.format() + "\n")
     if not native_eval:
         _mark("realign")
         # --- sort -n equivalent ----------------------------------------
@@ -187,6 +233,21 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     return {name: str(path) for name, path in outs.items()} | {
         "clusters": str(clusters_path), "clusters_sc": str(sc_path),
         "regions": str(regions_path), "split": str(split_path)}
+
+
+def _rowmax_fn(dev, tracer):
+    """The ``rowmax_fn`` of ``realign_candidates`` on ``dev``: numpy
+    operands in, (2n, L+1) int32 row maxima out.  A CUDA device launches
+    ``rowmax_kernel`` or raises; the CPU takes the plain version."""
+    def rowmax_fn(refs_p, ref_lens, reads_p, read_lens):
+        operands = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (refs_p, ref_lens, reads_p, read_lens))
+        tracer.count("rowmax_instances", int(len(ref_lens)))
+        tracer.counters["split_dp_impl"] = "cuda" if dev.type == "cuda" \
+            else "torch"
+        return dp_row_maxima_cuda(*operands).cpu().numpy()
+    return rowmax_fn
 
 
 def _reads_handle(out, fastq1, fastq2):

@@ -9,8 +9,13 @@ importing anything outside the package:
   ``STD``, ``PREC``, ``MINCL``, ``MINREAD``, ``MAXREAD``): the multi-fusion
   dataset of ``bench.py``, file for file;
 * ``Gene``, ``SynthDataset``, ``random_seq``, ``write_dataset``,
-  ``write_gtf``, ``write_genome_fasta``: the synthetic-genome helpers of
-  ``tests/synthdata.py`` that it needs;
+  ``write_gtf``, ``write_genome_fasta``, ``write_repeats``: the
+  synthetic-genome helpers of ``tests/synthdata.py`` that it needs;
+* ``write_run_config``, ``planted_pairs``, ``deal_fastq``: what a whole
+  ``run`` needs beside the reads (a config file naming the genome, the gene
+  models and the repeats, from which ``create-ref`` derives the dataset
+  directory), the gene pairs the reads were planted with, and a library
+  dealt out into smaller ones;
 * ``sweep_inputs``, ``edge_case``, ``screen_case``, ``verify_case``,
   ``frontend_config``: the seeded cases that hold the kernels' plain versions against the JAX
   package on the CPU and the kernels against their plain versions on the
@@ -184,15 +189,77 @@ def write_genome_fasta(ds: SynthDataset, path) -> None:
     write_fasta(str(path), dict(ds.genome))
 
 
-def build_dataset(tmp):
-    """Multi-fusion dataset: N_FUSIONS gene pairs on a synthetic genome."""
+def write_repeats(ds: SynthDataset, path, seed=17, n=300) -> None:
+    rng = random.Random(seed)
+    with open(path, "w") as out:
+        for _ in range(n):
+            chrom = rng.choice(list(ds.genome))
+            start = rng.randint(0, len(ds.genome[chrom]) - 2000)
+            end = start + rng.randint(100, 1900)
+            out.write(f"{chrom}\t{start}\t{end}\tSynthRep\n")
+
+
+def write_run_config(ds: SynthDataset, tmp, **overrides):
+    """Write what ``create-ref`` and ``run`` read for the synthetic genome
+    ``ds`` under ``tmp``: ``genome.fa``, ``genes.gtf``, ``repeats.regions``
+    and ``config.txt``, whose derived files live under the dataset
+    directory given on the command line.  Returns the config's path.
+    ``overrides`` replace or add ``key = value`` lines."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    write_gtf(ds, tmp / "genes.gtf")
+    write_genome_fasta(ds, tmp / "genome.fa")
+    write_repeats(ds, tmp / "repeats.regions")
+    values = {
+        "genome_fasta": tmp / "genome.fa",
+        "gene_models": tmp / "genes.gtf",
+        "gene_biotypes": "synth",
+        "chromosomes": ",".join(ds.genome),
+        "span_count_threshold": 3,
+        "repeats_regions": tmp / "repeats.regions",
+        "dataset_prefix": "$(dataset_directory)/defuse",
+        "cdna_regions": "$(dataset_prefix).cdna.regions",
+        "cdna_fasta": "$(dataset_prefix).cdna.fa",
+        "exons_fasta": "$(dataset_prefix).exons.fa",
+        "cds_fasta": "$(dataset_prefix).cds.fa",
+        "reference_fasta": "$(dataset_prefix).reference.fa",
+        "rrna_fasta": "$(dataset_prefix).rrna.fa",
+        "ig_gene_list": "$(dataset_prefix).ig.gene.list",
+    } | overrides
+    config = tmp / "config.txt"
+    config.write_text("".join(f"{k} = {v}\n" for k, v in values.items()))
+    return config
+
+
+def planted_pairs(ds: SynthDataset) -> set:
+    """The gene pairs ``build_dataset`` joined: genes 2k and 2k+1."""
+    names = [g.name for g in ds.genes]
+    return {frozenset(names[i:i + 2]) for i in range(0, len(names), 2)}
+
+
+def deal_fastq(src, dsts) -> None:
+    """Deal the records of the fastq ``src`` out to the files ``dsts`` in
+    turn, so each gets an even share of every fusion's fragments."""
+    outs = [open(d, "w") for d in dsts]
+    try:
+        with open(src) as fin:
+            for i, line in enumerate(fin):
+                outs[(i // 4) % len(outs)].write(line)
+    finally:
+        for fh in outs:
+            fh.close()
+
+
+def build_dataset(tmp, n_fusions=N_FUSIONS, n_background=N_BACKGROUND):
+    """Multi-fusion dataset: N_FUSIONS gene pairs on a synthetic genome.
+    Fewer ``n_fusions`` (with their decoys) or ``n_background`` pairs cut it
+    down for the routes that run in Python."""
     rng = random.Random(1234)
     chrom_len = 2_000_000
     genome = {"1": random_seq(rng, chrom_len), "2": random_seq(rng, chrom_len)}
 
     genes = []
     pos = {"1": 30000, "2": 30000}
-    for gi in range(2 * N_FUSIONS):
+    for gi in range(2 * n_fusions):
         chrom = "1" if gi % 2 == 0 else "2"
         strand = rng.randint(0, 1)
         exons = []
@@ -220,7 +287,7 @@ def build_dataset(tmp):
             sam_rows.append((frag, read_end, gene.chromosome, g_strand, gs,
                              seq))
 
-    for fi in range(N_FUSIONS):
+    for fi in range(n_fusions):
         ga, gb = genes[2 * fi], genes[2 * fi + 1]
         ca, cb = ga.cdna(genome), gb.cdna(genome)
         break_a = rng.randint(800, len(ca) - 400)
@@ -256,8 +323,8 @@ def build_dataset(tmp):
     # rejected by the DP accept threshold (realistic candidate accept
     # rates are low; this is where the device screen pays off).  One
     # read end only, so they never enter the spanning/clustering input.
-    for di in range(N_FUSIONS * DECOYS_PER_FUSION):
-        ga, gb, break_a, break_b, _fseq = fusions[di % N_FUSIONS]
+    for di in range(n_fusions * DECOYS_PER_FUSION):
+        ga, gb, break_a, break_b, _fseq = fusions[di % n_fusions]
         gene, brk = (ga, break_a) if di % 2 == 0 else (gb, break_b)
         cdna_len = len(gene.cdna(genome))
         pos = min(max(1, brk + rng.randint(-int(MEAN), int(MEAN))),
@@ -269,7 +336,7 @@ def build_dataset(tmp):
                          di % 2, pos, junk))
         frag_id += 1
 
-    for _ in range(N_BACKGROUND):
+    for _ in range(n_background):
         gene = rng.choice(genes)
         cdna = gene.cdna(genome)
         flen = max(100, int(rng.gauss(MEAN, STD)))

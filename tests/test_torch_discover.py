@@ -149,10 +149,24 @@ def test_port_with_gene_models_matches_jax_package(dataset):
             (tmp / "gm_host" / name).read_bytes(), name
 
 
-@pytest.mark.parametrize("mode", [{"em_mode": "oracle"},
-                                  {"reads_sources": [("a", "b", 0)]}])
-def test_port_refuses_unported_modes(dataset, mode):
+@pytest.mark.parametrize("mode,error,item", [
+    ({"em_mode": "device"}, ValueError, "B6/A11"),
+    ({"reads_sources": [("a", "b", 0)]}, NotImplementedError, "B7/A12")])
+def test_port_refuses_unported_modes(dataset, mode, error, item):
     tmp, kw = dataset
-    with pytest.raises(ValueError):
+    with pytest.raises(error, match=item):
         port.discover_fusions(outdir=str(tmp / "refused"), device="cpu",
                               **mode, **kw)
+    assert not (tmp / "refused").exists()
+
+
+def test_port_oracle_em_matches_native_em(dataset, port_run):
+    """``em_mode="oracle"`` (the Python EM, exact) with the native realign:
+    the artifacts of the native EM."""
+    tmp, kw = dataset
+    port.discover_fusions(outdir=str(tmp / "oracle"), device="cpu",
+                          em_mode="oracle", **kw)
+    port_dir, _ = port_run
+    for name in ARTIFACTS:
+        assert (port_dir / name).read_bytes() == \
+            (tmp / "oracle" / name).read_bytes(), name

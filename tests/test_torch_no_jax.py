@@ -1,7 +1,8 @@
 """The port never imports ``jax`` nor anything of ``defuse_tpu``:
-importing every module of ``defuse_tpu_torch`` and running its discover
-and its aligner frontend (every candidate verified by the port's
-verifier) on the CPU leaves ``jax``, ``defuse_tpu``, ``bench`` and the
+importing every module of ``defuse_tpu_torch`` and running its discover,
+its aligner frontend (every candidate verified by the port's verifier)
+and its command line (``create-ref``, ``run``, ``cohort``) on the CPU
+leaves ``jax``, ``defuse_tpu``, ``bench`` and the
 test helpers out of ``sys.modules``.  Runs in subprocesses, because this
 test process imported ``jax`` in ``conftest.py``; the datasets are written
 here, since ``tests/synthdata.py`` imports ``defuse_tpu``.  A static case
@@ -79,6 +80,28 @@ print("NO_JAX_OK")
 """
 
 
+CLI = PRELUDE + r"""
+from defuse_tpu_torch.cli.main import main
+data, refs = tmp / "data", tmp / "refs"
+config, dataset = str(refs / "config.txt"), str(tmp / "dataset")
+fastqs = ["-1", str(data / "reads.1.fastq"), "-2", str(data / "reads.2.fastq")]
+assert main(["create-ref", "-c", config, "-d", dataset]) == 0
+assert main(["run", "-c", config, "-d", dataset, "-o", str(tmp / "out"),
+             "-n", "libA", "--device", "cpu"] + fastqs) == 0
+rows = (tmp / "out" / "results.filtered.tsv").read_text().splitlines()
+assert len(rows) >= 2, "no fusion called"
+(tmp / "cohort.tsv").write_text("libA\t" + "\t".join(fastqs[1::2]) + "\n")
+os.environ["PYTHONPATH"] = {repo!r}
+assert main(["cohort", "-c", config, "-d", dataset, "-m",
+             str(tmp / "cohort.tsv"), "-o", str(tmp / "cohort"),
+             "--device", "cpu"]) == 0
+fusions = (tmp / "cohort" / "cohort_fusions.tsv").read_text().splitlines()
+assert [r.split("\t", 1)[1] for r in fusions] == rows
+assert not foreign(), foreign()
+print("NO_JAX_OK")
+"""
+
+
 def run_without_jax(script, tmp_path):
     if not native.available():
         pytest.skip("native library not built")
@@ -101,6 +124,17 @@ def test_port_frontend_runs_without_jax(tmp_path):
     write_dataset(ds, tmp_path / "data")
     frontend_config(ds, tmp_path / "refs")  # writes the references
     run_without_jax(FRONTEND, tmp_path)
+
+
+def test_port_cli_runs_without_jax(tmp_path):
+    """``create-ref``, ``run --device cpu`` and ``cohort --device cpu``
+    through ``cli.main.main``; the cohort's child is ``python -m
+    defuse_tpu_torch run``."""
+    from defuse_tpu_torch.utils import synth
+    ds = make_dataset(seed=7, n_fusion_frags=80, n_background_frags=40)
+    write_dataset(ds, tmp_path / "data")
+    synth.write_run_config(ds, tmp_path / "refs")
+    run_without_jax(CLI, tmp_path)
 
 
 FORBIDDEN = ("defuse_tpu", "jax", "jaxlib", "bench", "synthdata", "helpers",
