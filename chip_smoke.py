@@ -60,10 +60,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    route's on the same input, ``rowmax_kernel``'s launches counted, the
    kernel against its plain version and timed on the route's own operands,
    ``dp_tie_columns`` on the card equal to the same call on CPU tensors bit
-   for bit and timed;
+   for bit and timed; then a second child on the same input with
+   ``em_mode="device"``, the batched EM on the card in place of the Python
+   oracle: the same bytes again, ``em_impl == "cuda"``, and its ``cluster``
+   stage's seconds beside the oracle child's;
 11. ``cohort``: the bench reads dealt out into two libraries, through
    ``cli.main.main(["cohort", ...])`` with two workers sharing the card;
-   both libraries ``ok``, ``cohort_fusions.tsv`` not empty.
+   both libraries ``ok``, ``cohort_fusions.tsv`` not empty;
+12. the batched EM at the bench dataset's width: every bin pair of its
+   ``spanning`` file through ``prepare_batch`` and ``run_batch`` on the
+   card, in float64 and in float32 with the exact re-solve, each held
+   membership for membership to ``native.em_cluster_batch`` (the exact
+   answer) on the same instances and to the same call on CPU tensors; two
+   runs of each type must give the same bits of ``a``, ``b``, ``ll``.
+   Prints rows, widest N, slabs, segments, iterations, row-iterations run
+   and live, the seconds of prepare, device and select, the native EM's
+   seconds, the instances re-solved on the host, peak device memory, and
+   from one ``torch.profiler`` pass over a segment of the whole batch the
+   kernel launches an iteration and the device's busy share.  The EM is
+   plain PyTorch: it has no entry in the ``kernels`` line.
 
 All kernel comparisons are exact (integer results; tolerance 0).  Each
 kernel's bound is the larger of its least bytes over the card's memory
@@ -921,13 +936,18 @@ def phase_run(card, work, dataset, device):
 NO_NATIVE_FUSIONS, NO_NATIVE_BACKGROUND = 12, 3000
 
 
-def no_native_child(work, device):
+NO_NATIVE_OUT = {"oracle": "no_native", "device": "no_native_device_em"}
+
+
+def no_native_child(work, device, em_mode):
     """Phase 10's child process (``DEFUSE_NO_NATIVE=1``): discover on the
-    cut dataset under ``work`` through the Python EM and the Python
-    realign, the row maxima and tie columns on ``device``.  Prints one JSON
-    line: launches, the kernel against its plain version and both timed on
-    the route's own operands, ``dp_tie_columns`` on ``device`` against the
-    same call on CPU tensors."""
+    cut dataset under ``work`` through the Python realign, the row maxima
+    and tie columns on ``device``, and the EM that ``em_mode`` names: the
+    Python oracle, or the batched EM on ``device``.  Prints one JSON line.
+    For the oracle: launches, the kernel against its plain version and both
+    timed on the route's own operands, ``dp_tie_columns`` on ``device``
+    against the same call on CPU tensors.  For the batched EM: what
+    ``metrics.discover.json`` says of it."""
     from defuse_tpu_torch.cluster import native
     from defuse_tpu_torch.ops import split_dp_batch, split_dp_cuda
     from defuse_tpu_torch.pipeline import discover
@@ -943,14 +963,20 @@ def no_native_child(work, device):
     split_dp_batch.dp_tie_columns = \
         lambda *ops: seen["tie"].append(ops) or tie(*ops)
     split_dp_cuda.reset_launches()
+    outdir = work / NO_NATIVE_OUT[em_mode]
     t0 = time.time()
-    discover.discover_fusions(outdir=str(work / "no_native"), device=device,
-                              em_mode="oracle", **discover_kwargs(paths))
+    discover.discover_fusions(outdir=str(outdir), device=device,
+                              em_mode=em_mode, **discover_kwargs(paths))
     seconds = time.time() - t0
     launches = dict(split_dp_cuda.LAUNCHES)
     check(len(seen["rowmax"]) == 1 and len(seen["tie"]) == 2,
           f"route called rowmax {len(seen['rowmax'])} and dp_tie_columns "
           f"{len(seen['tie'])} times")
+    check_no_reference_modules()
+    if em_mode == "device":
+        print(json.dumps({"seconds": seconds, "launches": launches}),
+              flush=True)
+        return 0
 
     ops = seen["rowmax"][0]
     want = split_dp_batch.dp_row_maxima(*ops)
@@ -976,9 +1002,50 @@ def no_native_child(work, device):
         rec["tie"].append({"winners": int(ops[0].shape[0]),
                            "rows": int(ops[4].shape[1]),
                            "ms": time_ms(lambda: tie(*ops), 3)})
-    check_no_reference_modules()
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def no_native_device_em(card, cut, device, recs):
+    """The second child's run (the batched EM on ``device``) against the
+    native route and the oracle child, and what its metrics say."""
+    out = cut / NO_NATIVE_OUT["device"]
+    for name in ARTIFACTS:
+        got = (out / name).read_bytes()
+        check(got == (cut / "native" / name).read_bytes(),
+              f"no-native, device EM: {name} differs from the native route")
+        check(got == (cut / NO_NATIVE_OUT["oracle"] / name).read_bytes(),
+              f"no-native, device EM: {name} differs from the oracle child")
+    stage_s = {}
+    for em_mode, sub in NO_NATIVE_OUT.items():
+        metrics = json.loads((cut / sub / "metrics.discover.json")
+                             .read_text())
+        stage_s[em_mode] = {s["stage"].removeprefix("discover:"):
+                            s["seconds"] for s in metrics["stages"]}
+    counters = metrics["counters"]  # the device child's
+    check(counters.get("em_impl") == IMPL[device],
+          f"no-native, device EM: em_impl is {counters.get('em_impl')!r}")
+    check(counters["em_select"]["n_instances"] > 0
+          and counters["em_run"]["rows"] > 0,
+          "no-native, device EM: the batched EM ran on nothing")
+    check(recs["device"]["launches"]["split_dp_rowmax"] >= 1,
+          "no-native, device EM: rowmax kernel never launched")
+    say(card, f"no-native discover with em_mode=device "
+              f"(em_impl {counters['em_impl']}): "
+              f"{recs['device']['seconds']:.3f} s against "
+              f"{recs['oracle']['seconds']:.3f} s with the Python EM; "
+              f"cluster stage {stage_s['device']['cluster']} s against "
+              f"{stage_s['oracle']['cluster']} s; "
+              f"{counters['em_select']['n_instances']} instances, "
+              f"n_host_resolved "
+              f"{counters['em_select']['n_host_resolved']}; "
+              f"{len(ARTIFACTS)} artifacts byte-identical to the oracle "
+              f"child's and the native route's; EM run stats "
+              f"{counters['em_run']}")
+    recs["device"].update(cluster_s=stage_s["device"]["cluster"],
+                          oracle_cluster_s=stage_s["oracle"]["cluster"],
+                          em_select=counters["em_select"],
+                          em_run=counters["em_run"])
 
 
 def phase_no_native(card, work, device):
@@ -994,13 +1061,17 @@ def phase_no_native(card, work, device):
     discover_fusions(outdir=str(cut / "native"), device=device,
                      **discover_kwargs(paths))
     t_native = time.time() - t0
-    proc = subprocess.run(
-        [sys.executable, str(REPO / "chip_smoke.py"), "--no-native-child",
-         str(cut), device], env=dict(os.environ, DEFUSE_NO_NATIVE="1"),
-        capture_output=True, text=True, timeout=600, cwd=REPO)
-    check(proc.returncode == 0,
-          f"no-native child failed: {proc.stderr[-3000:]}")
-    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    recs = {}
+    for em_mode in NO_NATIVE_OUT:
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"),
+             "--no-native-child", str(cut), device, em_mode],
+            env=dict(os.environ, DEFUSE_NO_NATIVE="1"),
+            capture_output=True, text=True, timeout=600, cwd=REPO)
+        check(proc.returncode == 0,
+              f"no-native child ({em_mode}) failed: {proc.stderr[-3000:]}")
+        recs[em_mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec = recs["oracle"]
     for name in ARTIFACTS:
         check((cut / "native" / name).read_bytes() ==
               (cut / "no_native" / name).read_bytes(),
@@ -1028,6 +1099,8 @@ def phase_no_native(card, work, device):
               f"dp_tie_columns (torch, == CPU tensors bit for bit): " +
               "; ".join(f"{t['winners']} winners x {t['rows']} rows "
                         f"{t['ms']:.3f} ms" for t in rec["tie"]))
+    no_native_device_em(card, cut, device, recs)
+    rec["device_em"] = recs["device"]
     return rec
 
 
@@ -1082,6 +1155,152 @@ def phase_cohort(card, work, dataset, device):
               f"fusions, {recurrent} gene pairs in cohort_recurrent.tsv")
 
 
+# --- phase 12 ---------------------------------------------------------------
+
+EM_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def same_bits(a, b):
+    """Two float arrays hold the same bits (a NaN equals itself)."""
+    return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def em_segment_profile(batch, params, dev):
+    """One ``torch.profiler`` pass over one segment of the EM on the whole
+    batch at its padded width: (kernel launches an iteration, the device's
+    busy share of the span from its first kernel to its last, iterations,
+    unprofiled milliseconds an iteration).  The launches of the set-up
+    before the loop (a profiled run of no iterations) are taken off.
+    (None, None, ...) where the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from defuse_tpu_torch.cluster import matepair_em_batch as em
+    run = em.make_em_step(params.fragment_stddev)
+    ops = [torch.as_tensor(v, dtype=torch.float64, device=dev)
+           for v in (batch.x, batch.y, batch.u)] + \
+        [torch.as_tensor(batch.n, device=dev),
+         torch.as_tensor(batch.k, device=dev),
+         torch.as_tensor(batch.r0, dtype=torch.float64, device=dev)]
+
+    def traced(max_iters):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            iters = run(*ops, max_iters=max_iters)[5]
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return iters, spans
+
+    run(*ops, max_iters=2)  # load every kernel before anything is timed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    iters = run(*ops, max_iters=em.SEGMENT_ITERS)[5]
+    torch.cuda.synchronize()
+    ms_iter = (time.time() - t0) * 1e3 / iters
+    _none, setup = traced(0)
+    iters, spans = traced(em.SEGMENT_ITERS)
+    if not spans:
+        return None, None, iters, ms_iter
+    busy = sum(end - start for start, end in spans) / (
+        max(end for _s, end in spans) - min(start for start, _e in spans))
+    return (len(spans) - len(setup)) / iters, busy, iters, ms_iter
+
+
+def phase_em(card, dataset, dev):
+    from defuse_tpu_torch.cluster import matepair_em_batch as em
+    from defuse_tpu_torch.cluster import native
+    from defuse_tpu_torch.cluster.discordant import collect_bin_pair_tasks
+    from defuse_tpu_torch.cluster.matepair_em import EMParams
+    from defuse_tpu_torch.io.sam import iter_compact, load_alignments
+    from defuse_tpu_torch.utils import synth
+
+    _ds, paths, _n_pairs = dataset
+    params = EMParams(synth.MEAN, synth.STD, synth.PREC, synth.MINCL)
+    tasks = collect_bin_pair_tasks(
+        load_alignments(iter_compact(str(paths["spanning"]))), params)
+    instances = [(t.x, t.y, t.u) for t in tasks]
+    t0 = time.time()
+    want = [[sorted(c) for c in clusters]
+            for clusters in native.em_cluster_batch(instances, params)]
+    t_native = time.time() - t0
+    t0 = time.time()
+    batch = em.prepare_batch(instances, params)
+    t_prepare = time.time() - t0
+    check(sum(map(len, want)) > 0, "EM: the native EM found no cluster")
+
+    def held(got, label):
+        """No tolerance and no second try: the first instance whose
+        memberships differ from the native answer fails the phase."""
+        for i, exp in enumerate(want):
+            mine = [sorted(c) for c in got.get(i, [])]
+            check(mine == exp, f"EM {label}: instance {i} (n "
+                               f"{len(instances[i][0])}) has {mine}, the "
+                               f"native EM {exp}")
+
+    rec = {"instances": len(instances), "rows": int(len(batch.n)),
+           "max_n": int(batch.n.max()), "native_s": t_native,
+           "prepare_s": t_prepare}
+    say(card, f"EM on the bench dataset's bin pairs: {rec['instances']} "
+              f"instances, {rec['rows']} (instance, K) rows, widest N "
+              f"{rec['max_n']}; native EM {t_native:.3f} s, prepare_batch "
+              f"{t_prepare:.3f} s")
+    for name, dtype in EM_DTYPES.items():
+        runs = []
+        for _ in range(2):  # the first loads the kernels
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            outs = em.run_em(batch, params, dtype, dev)
+            torch.cuda.synchronize()
+            runs.append((time.time() - t0, outs, dict(em.EM_RUN_STATS),
+                         torch.cuda.max_memory_allocated(dev)))
+        for x, y, what in zip(runs[0][1], runs[1][1], ("a", "b", "ll", "ok")):
+            check(same_bits(x, y), f"EM {name}: two runs differ in {what}")
+        t0 = time.time()
+        got = em.run_batch(batch, params, dtype=dtype, device=dev)
+        t_batch = time.time() - t0
+        select = dict(em.LAST_SELECT_STATS)
+        held(got, f"{name} on the card")
+        check(select["exact_resolve"] == (name == "float32"),
+              f"EM {name}: exact_resolve is {select['exact_resolve']}")
+        stats = runs[1][2]
+        slab_bytes = stats["slab_elems_max"] * torch.empty(
+            0, dtype=dtype).element_size()
+        rec[name] = {
+            "first_s": runs[0][0], "device_s": runs[1][0],
+            "select_s": t_batch - em.EM_RUN_STATS["wall_s"],
+            "n_host_resolved": select["n_host_resolved"],
+            "peak_bytes": runs[1][3],
+            "peak_over_largest_slab": runs[1][3] / slab_bytes,
+            "stats": stats}
+        say(card, f"EM {name} on the card: {runs[1][0]:.3f} s (first run "
+                  f"{runs[0][0]:.3f} s), select {rec[name]['select_s']:.3f} "
+                  f"s, n_host_resolved {select['n_host_resolved']} of "
+                  f"{select['n_instances']}; memberships == native on all "
+                  f"{len(want)} instances; two runs equal bit for bit; "
+                  f"{stats['groups']} groups, {stats['slabs']} slabs, "
+                  f"{stats['segments']} segments, {stats['iters']} "
+                  f"iterations, row-iterations {stats['row_iters_run']} run "
+                  f"/ {stats['row_iters_live']} live; peak device memory "
+                  f"{runs[1][3] / 1e6:.1f} MB, "
+                  f"{runs[1][3] / slab_bytes:.1f} times the largest slab's "
+                  f"(rows, K, N) tensor; run stats {stats}")
+    t0 = time.time()
+    held(em.run_batch(batch, params, device="cpu"), "float64 on CPU tensors")
+    rec["cpu_s"] = time.time() - t0
+    launches, busy, iters, ms_iter = em_segment_profile(batch, params, dev)
+    rec.update(launches_per_iter=launches, busy_share=busy,
+               segment_ms_per_iter=ms_iter)
+    say(card, f"EM float64 on CPU tensors: {rec['cpu_s']:.3f} s, memberships "
+              f"== native; one segment of the whole batch ({rec['rows']} "
+              f"rows, K {batch.r0.shape[1]}, N {batch.x.shape[1]}, {iters} "
+              f"iterations): {ms_iter:.3f} ms an iteration; torch.profiler: "
+              + ("no device event recorded (launches and busy share not "
+                 "measured)" if launches is None else
+                 f"{launches:.1f} kernel launches an iteration, device busy "
+                 f"{100 * busy:.1f}% of the segment"))
+    return rec
+
+
 def bound(work_bytes, ops_ms):
     """(bound ms, what bounds): the larger of the least bytes over the
     card's memory rate and the least operations' time."""
@@ -1091,8 +1310,8 @@ def bound(work_bytes, ops_ms):
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--no-native-child":
-        return no_native_child(pathlib.Path(sys.argv[2]), sys.argv[3])
+    if len(sys.argv) == 5 and sys.argv[1] == "--no-native-child":
+        return no_native_child(pathlib.Path(sys.argv[2]), *sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -1147,6 +1366,8 @@ def main() -> int:
         no_native = phase_no_native(card, work, "cuda")
         # --- phase 11: cohort --------------------------------------------
         phase_cohort(card, work, dataset, "cuda")
+        # --- phase 12: the batched EM ------------------------------------
+        em_rec = phase_em(card, dataset, dev)
     # --- phase 8: probe and roofline -------------------------------------
     err_probe, probe_ms, probe_plain_ms, probe_work = \
         phase_probe_equals_plain(card, dev)
@@ -1225,6 +1446,9 @@ def main() -> int:
                   f"{k['name']} {k['ms']:.4f} ms, {k['launches']} launches, "
                   f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
                   f"({100 * k['bound_ms'] / k['ms']:.1f}%)" for k in kernels))
+    print(json.dumps({"em": em_rec,
+                      "no_native_device_em": no_native["device_em"]}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -345,7 +345,8 @@ def emit_cluster_rows(tasks, memberships, table: AlignmentTable,
 
 
 def cluster_alignments(table: AlignmentTable, params: EMParams,
-                       use_device: bool = False, em_mode: str = "auto"):
+                       use_device: bool = False, em_mode: str = "auto",
+                       device="cuda"):
     """Full clustering pass over an alignment table grouped by fragment.
 
     The table must be grouped by fragment (stream order), as produced by
@@ -355,10 +356,10 @@ def cluster_alignments(table: AlignmentTable, params: EMParams,
       "auto"   — native C++ exact EM when built, else the Python oracle
       "native" — native C++ exact EM (bit-identical memberships)
       "oracle" — Python exact oracle
-      "device" — the batched device EM, not ported yet (ROADMAP B6/A11)
+      "device" — batched PyTorch EM on ``device`` (decision-equivalent)
     ``use_device=True`` upgrades "auto" to "device" when the native
-    library is missing, and "device" raises NotImplementedError: pass
-    ``em_mode="oracle"`` (exact) or ``use_device=False`` there.
+    library is missing.  ``device`` names where the batched EM runs: a
+    CUDA device or it raises, "cpu" for the same program on CPU tensors.
     """
     tasks = collect_bin_pair_tasks(table, params)
     if em_mode == "auto":
@@ -370,11 +371,16 @@ def cluster_alignments(table: AlignmentTable, params: EMParams,
         else:
             em_mode = "oracle"
     if em_mode == "device":
-        raise NotImplementedError(
-            "the batched device EM is not ported (ROADMAP B6/A11): pass "
-            "em_mode='oracle' or 'native', or use_device=False")
+        from ..core.devices import require_cuda
+        require_cuda(device)  # also where there is nothing to cluster
     if not tasks:
         memberships = []
+    elif em_mode == "device":
+        from .matepair_em_batch import prepare_batch, run_batch
+        batch = prepare_batch([(t.x, t.y, t.u) for t in tasks], params)
+        result = run_batch(batch, params, device=device) \
+            if batch is not None else {}
+        memberships = [result.get(i, []) for i in range(len(tasks))]
     elif em_mode == "native":
         from . import native
         memberships = native.em_cluster_batch(

@@ -82,10 +82,15 @@ def read_manifest(path: str) -> list[Library]:
 
 
 def _rank_nprocs() -> tuple[int, int]:
+    """This process's rank and the number of ranks sharing the manifest:
+    the cohort's own variables first, then the pair ``torchrun`` sets,
+    then the pair the reference's launcher sets."""
     env = os.environ
     if "DEFUSE_COHORT_RANK" in env:
         return (int(env["DEFUSE_COHORT_RANK"]),
                 int(env.get("DEFUSE_COHORT_NPROCS", "1")))
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return int(env["RANK"]), int(env["WORLD_SIZE"])
     if "JAX_PROCESS_ID" in env and "JAX_NUM_PROCESSES" in env:
         return int(env["JAX_PROCESS_ID"]), int(env["JAX_NUM_PROCESSES"])
     return 0, 1

@@ -9,8 +9,10 @@ and byte-identical artifacts, on both of its routes:
   reads no split alignment would accept; the native driver realigns the
   survivors;
 * without it (``DEFUSE_NO_NATIVE=1`` or no compiler), clustering is the
-  port's Python EM and the realign is ``align/batch_realign``: DP row
-  maxima from ``ops/split_dp_cuda.dp_row_maxima_cuda``, tie columns from
+  batched EM on the device (``cluster/matepair_em_batch``; the Python
+  oracle with ``em_mode="oracle"`` or ``use_device=False``) and the
+  realign is ``align/batch_realign``: DP row maxima from
+  ``ops/split_dp_cuda.dp_row_maxima_cuda``, tie columns from
   ``ops/split_dp_batch.dp_tie_columns``.
 
 The device stages run as CUDA kernels (``device="cuda"``) or, only when
@@ -30,7 +32,7 @@ from ..align.batch_realign import (_pad_len, collect_candidates,
                                    realign_candidates)
 from ..align.tasks import (SplitReadRealigner, create_tasks, evaluate_file,
                            read_align_region_pairs)
-from ..cluster import native
+from ..cluster import matepair_em_batch, native
 from ..cluster.discordant import cluster_alignments, write_clusters
 from ..cluster.matepair_em import EMParams
 from ..cluster.setcover import run_setcover_file
@@ -46,7 +48,7 @@ from ..utils.profiling import Tracer, device_trace
 from .regions import align_regions_file
 
 
-EM_MODES = ("auto", "native", "oracle")
+EM_MODES = ("auto", "native", "oracle", "device")
 
 
 def require_native() -> None:
@@ -71,21 +73,23 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     ``use_device`` puts the device stages on ``device``: the split-read
     screen with the native library (``DEFUSE_DEVICE_SCREEN=off`` disables
     it), the row maxima and tie columns of the Python realign without it.
-    ``em_mode`` is "auto" (the native EM when the library is built),
-    "native" or "oracle" (the Python EM, exact); without the library "auto"
-    with ``use_device`` would mean the batched device EM, which is not
-    ported (ROADMAP B6/A11) and raises.  One process: ``dist`` with more
-    than one and ``reads_sources`` raise (ROADMAP B7/A12).
+    ``em_mode`` is "auto" (the native EM when the library is built; without
+    it the batched EM on ``device`` with ``use_device``, else the oracle),
+    "native", "oracle" (the Python EM, exact) or "device" (the batched EM
+    on ``device``, decision-equivalent).  ``metrics.discover.json`` names
+    the EM that ran as ``em_impl``: native, oracle, cuda, or torch where
+    ``device="cpu"`` was passed.  One process: ``dist`` with more than one
+    and ``reads_sources`` raise (ROADMAP B7/A12).
     """
     if em_mode not in EM_MODES:
         raise ValueError(f"em_mode {em_mode!r}: the port runs "
-                         f"{', '.join(EM_MODES)} (the device EM is ROADMAP "
-                         "B6/A11)")
+                         f"{', '.join(EM_MODES)}")
     if (dist is not None and dist.n_proc > 1) or reads_sources:
         raise NotImplementedError(
             "the port's discover runs on one process: the distributed tail "
             "(dist, reads_sources) is not ported (ROADMAP B7/A12)")
-    dev = require_cuda(device) if use_device else None
+    dev = require_cuda(device) if use_device or em_mode == "device" \
+        else None
 
     out = pathlib.Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
@@ -106,11 +110,15 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     if em_mode in ("auto", "native") and have_native:
         # full native file->file driver: parse + bin + filter + EM + emit
         native.clustermatepairs(spanning, clusters_path, params)
+        tracer.counters["em_impl"] = "native"
     else:
         table = load_alignments(iter_compact(spanning))
+        matepair_em_batch.LAST_SELECT_STATS.clear()
+        matepair_em_batch.EM_RUN_STATS.clear()
         rows = cluster_alignments(table, params, use_device=use_device,
-                                  em_mode=em_mode)
+                                  em_mode=em_mode, device=device)
         write_clusters(rows, str(clusters_path))
+        _record_em(tracer, em_mode, use_device, dev)
 
     _mark("cluster")
     checks.check_clusters_file(str(clusters_path), min_cluster_size)
@@ -233,6 +241,20 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     return {name: str(path) for name, path in outs.items()} | {
         "clusters": str(clusters_path), "clusters_sc": str(sc_path),
         "regions": str(regions_path), "split": str(split_path)}
+
+
+def _record_em(tracer, em_mode, use_device, dev):
+    """Name the EM that ``cluster_alignments`` ran (its own rule for
+    "auto" without the native library) and, for the batched EM, what its
+    run and its selection counted."""
+    if em_mode == "auto":
+        em_mode = "device" if use_device else "oracle"
+    if em_mode != "device":
+        tracer.counters["em_impl"] = em_mode
+        return
+    tracer.counters["em_impl"] = "cuda" if dev.type == "cuda" else "torch"
+    tracer.counters["em_select"] = dict(matepair_em_batch.LAST_SELECT_STATS)
+    tracer.counters["em_run"] = dict(matepair_em_batch.EM_RUN_STATS)
 
 
 def _rowmax_fn(dev, tracer):

@@ -99,6 +99,7 @@ def test_port_metrics_name_the_screen(port_run):
     metrics = json.loads((port_dir / "metrics.discover.json").read_text())
     counters = metrics["counters"]
     assert counters["split_dp_impl"] == "torch"
+    assert counters["em_impl"] == "native"
     assert counters["screen_candidates"] == len(seen["scores"])
     assert counters["screen_survivors"] == int((seen["scores"] > 0).sum())
     stages = [s["stage"] for s in metrics["stages"]]
@@ -150,14 +151,46 @@ def test_port_with_gene_models_matches_jax_package(dataset):
 
 
 @pytest.mark.parametrize("mode,error,item", [
-    ({"em_mode": "device"}, ValueError, "B6/A11"),
-    ({"reads_sources": [("a", "b", 0)]}, NotImplementedError, "B7/A12")])
+    ({"em_mode": "batched"}, ValueError, "auto, native, oracle, device"),
+    ({"reads_sources": [("a", "b", 0)]}, NotImplementedError, "B7/A12"),
+    ({"em_mode": "device"}, None, None)])
 def test_port_refuses_unported_modes(dataset, mode, error, item):
+    """What the port still refuses writes nothing; ``em_mode="device"`` is
+    refused no longer: on CPU tensors its ``clusters`` are the bytes of
+    ``defuse_tpu``'s oracle EM, and without a card it raises at once."""
+    import json
+    import torch
     tmp, kw = dataset
-    with pytest.raises(error, match=item):
-        port.discover_fusions(outdir=str(tmp / "refused"), device="cpu",
+    if error is not None:
+        with pytest.raises(error, match=item):
+            port.discover_fusions(outdir=str(tmp / "refused"), device="cpu",
+                                  **mode, **kw)
+        assert not (tmp / "refused").exists()
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small tensors: more threads only contend
+    try:
+        port.discover_fusions(outdir=str(tmp / "device_em"), device="cpu",
                               **mode, **kw)
-    assert not (tmp / "refused").exists()
+    finally:
+        torch.set_num_threads(threads)
+    jax_discover(outdir=str(tmp / "jax_oracle"), use_device=False,
+                 em_mode="oracle", **kw)
+    for name in ARTIFACTS:
+        assert (tmp / "device_em" / name).read_bytes() == \
+            (tmp / "jax_oracle" / name).read_bytes(), name
+    assert (tmp / "device_em" / "clusters").read_bytes()
+    counters = json.loads((tmp / "device_em" / "metrics.discover.json")
+                          .read_text())["counters"]
+    assert counters["em_impl"] == "torch"
+    assert counters["em_select"]["n_instances"] > 0
+    assert counters["em_select"]["n_host_resolved"] == 0
+    assert counters["em_run"]["rows"] >= counters["em_select"]["n_instances"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            port.discover_fusions(outdir=str(tmp / "no_card"),
+                                  use_device=False, **mode, **kw)
+        assert not (tmp / "no_card").exists()
 
 
 def test_port_oracle_em_matches_native_em(dataset, port_run):

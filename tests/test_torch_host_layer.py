@@ -34,7 +34,7 @@ COPIED = (
     "io/bam.py", "cli/get_reads.py", "cli/exporters.py",
     "cli/expression_plot.py", "pipeline/create_ref.py",
     "pipeline/acquire.py", "pipeline/cohort.py", "cli/main.py",
-    "cli/__init__.py", "__main__.py")
+    "cli/__init__.py", "__main__.py", "cluster/matepair_em_batch.py")
 
 # module: (why it differs, names whose source must still be the reference's)
 DIVERGED = {
@@ -52,8 +52,9 @@ DIVERGED = {
          "collect_candidates_native", "_native_rows",
          "realign_candidates_native", "_columns", "_pad_len")),
     "cluster/discordant.py": (
-        "cluster_alignments(em_mode='device') raises: the batched device "
-        "EM is not ported (ROADMAP B6/A11)",
+        "cluster_alignments takes the device its batched EM runs on "
+        "(em_mode='device'), checks it before anything else and hands it "
+        "to the port's run_batch",
         ("ClusterRow", "BinPairTask", "collect_bin_pair_tasks",
          "emit_cluster_rows", "strand_remap_vec", "write_clusters")),
     "pipeline/run.py": (
@@ -64,8 +65,10 @@ DIVERGED = {
          "_span_stats_from_breaks", "materialize_cov_samples")),
     "pipeline/cohort.py": (
         "run_cohort takes device, checks the card before any library "
-        "starts and hands --device to each library's run",
-        ("Library", "read_manifest", "_rank_nprocs", "merge_cohort")),
+        "starts and hands --device to each library's run; _rank_nprocs "
+        "reads torchrun's RANK/WORLD_SIZE ahead of the reference "
+        "launcher's JAX_PROCESS_ID/JAX_NUM_PROCESSES, which it keeps",
+        ("Library", "read_manifest", "merge_cohort")),
     "pipeline/create_ref.py": (
         "the first line of the module docstring is reworded; the code is "
         "the reference's text",
@@ -74,6 +77,19 @@ DIVERGED = {
         "run and cohort take --device {cuda,cpu} and check the card at "
         "once; the other six verbs are the reference's text",
         ("_find_or_materialize_pair_sam",)),
+    "cluster/matepair_em_batch.py": (
+        "the device program (_exponents to _run_bucketed, run_batch) is "
+        "PyTorch on the tensors' device, without the one-hot masks, the "
+        "compile-shape padding and the memory constants of the JAX "
+        "program; prepare_batch and _resolve_exact lose the timings of "
+        "the reference's hardware from their comments and fall back to "
+        "Python only on AttributeError (a library built before the batch "
+        "entry points), where the reference swallows every exception; "
+        "the rest of the host half is the reference's text",
+        ("EMBatch", "_seed", "_select_kkz", "_shape_buckets", "_bucket_of",
+         "select_memberships", "PROB_LOG_MARGIN", "BIC_MARGIN",
+         "LAST_SELECT_STATS", "MAX_ITERS", "BIG", "K_BUCKETS",
+         "N_BUCKETS_BASE")),
     "utils/profiling.py": (
         "device_trace runs torch.profiler instead of jax.profiler, and "
         "cuda_time_ms is the port's; Tracer is the reference's text",
@@ -87,13 +103,17 @@ def renamed(text: str) -> str:
 
 def definition(text: str, name: str) -> str:
     """Source of the top-level ``def``/``class`` ``name``, decorators
-    included."""
+    included, or of the top-level assignment to ``name``."""
     for node in ast.parse(text).body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
                 and node.name == name:
             start = min([node.lineno] +
                         [d.lineno for d in node.decorator_list])
             return "\n".join(text.splitlines()[start - 1:node.end_lineno])
+        targets = node.targets if isinstance(node, ast.Assign) else \
+            [node.target] if isinstance(node, ast.AnnAssign) else []
+        if any(isinstance(t, ast.Name) and t.id == name for t in targets):
+            return ast.get_source_segment(text, node)
     raise KeyError(name)
 
 
@@ -115,7 +135,7 @@ def test_host_module_is_the_reference_source(module):
 
 def test_diverged_names_only_copied_modules():
     assert set(DIVERGED) <= set(COPIED)
-    assert len(COPIED) == len(set(COPIED)) == 52
+    assert len(COPIED) == len(set(COPIED)) == 53
 
 
 def test_tie_column_enumeration_names_its_roadmap_item():
@@ -181,3 +201,19 @@ def test_synth_helpers_are_the_test_helpers_source(name):
     if name == "random_seq":  # the port imports numpy at the top
         ref = ref.replace("    import numpy as np\n", "")
     assert port == ref
+
+
+def test_prepare_batch_differs_only_in_comments_and_the_catch():
+    """``prepare_batch`` and ``_resolve_exact`` against the reference's
+    text: docstring and comments apart, the code is the same but for the
+    exception each catches."""
+    def code(path, name):
+        func = ast.parse(definition(path.read_text(), name)).body[0]
+        func.body = func.body[1:]  # the docstring
+        return ast.dump(func)
+
+    module = "cluster/matepair_em_batch.py"
+    for name in ("prepare_batch", "_resolve_exact"):
+        ref, port = code(REFERENCE / module, name), code(PORT / module, name)
+        assert ref != port
+        assert ref == port.replace("id='AttributeError'", "id='Exception'")

@@ -3,7 +3,8 @@ importing every module of ``defuse_tpu_torch`` and running its discover,
 its aligner frontend (every candidate verified by the port's verifier)
 and its command line (``create-ref``, ``run``, ``cohort``) on the CPU
 leaves ``jax``, ``defuse_tpu``, ``bench`` and the
-test helpers out of ``sys.modules``.  Runs in subprocesses, because this
+test helpers out of ``sys.modules``; so does the batched EM
+(``run_batch(device="cpu")``, chunked and in one launch).  Runs in subprocesses, because this
 test process imported ``jax`` in ``conftest.py``; the datasets are written
 here, since ``tests/synthdata.py`` imports ``defuse_tpu``.  A static case
 reads every import statement of the port and of ``chip_smoke.py``."""
@@ -102,6 +103,32 @@ print("NO_JAX_OK")
 """
 
 
+EM = PRELUDE + r"""
+import numpy as np
+from defuse_tpu_torch.cluster.matepair_em import EMParams, MatePairEM
+from defuse_tpu_torch.cluster.matepair_em_batch import (prepare_batch,
+                                                        run_batch)
+params = EMParams(200.0, 20.0, 0.95, 3)
+rng = np.random.default_rng(5)
+instances = []
+for centre in (5_000, 90_000, 150_000):
+    left = rng.integers(20, 110, size=9).astype(float)
+    instances.append((centre - left, centre + 700 - (100.0 - left),
+                      np.full(9, 100.0)))
+batch = prepare_batch(instances, params)
+oracle = MatePairEM(params)
+want = {{i: [sorted(c) for c in oracle.do_clustering(*inst)]
+        for i, inst in enumerate(instances)}}
+for kw in (dict(), dict(chunk_rows=0), dict(chunk_rows=4),
+           dict(dtype=np.float32)):
+    got = run_batch(batch, params, device="cpu", **kw)
+    assert {{i: [sorted(c) for c in cl] for i, cl in got.items()}} == want, kw
+assert any(want.values()), "no cluster found"
+assert not foreign(), foreign()
+print("NO_JAX_OK")
+"""
+
+
 def run_without_jax(script, tmp_path):
     if not native.available():
         pytest.skip("native library not built")
@@ -117,6 +144,10 @@ def test_port_runs_without_jax(tmp_path):
                                break_a=2400, break_b=1000),
                   tmp_path / "data")
     run_without_jax(SCRIPT, tmp_path)
+
+
+def test_port_batched_em_runs_without_jax(tmp_path):
+    run_without_jax(EM, tmp_path)
 
 
 def test_port_frontend_runs_without_jax(tmp_path):

@@ -8,6 +8,7 @@ same host code on the same machine).  The discover route without the
 native library runs in subprocesses (``DEFUSE_NO_NATIVE=1`` is read once
 per process) in both packages and is held to the native route too."""
 
+import contextlib
 import pathlib
 import subprocess
 import sys
@@ -28,6 +29,20 @@ from test_stats_filters import _make_concordant_sam
 from test_torch_discover import ARTIFACTS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """The batched EM's tensors are small here: more threads only contend
+    with the other test processes."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
 
 RUN_FILES = {
     "full": ("results.tsv", "results.classify.tsv", "results.filtered.tsv",
@@ -140,10 +155,14 @@ if package == "defuse_tpu":
     from defuse_tpu.pipeline.discover import discover_fusions
     extra = dict(use_device=False)
 else:
+    import torch
+    torch.set_num_threads(1)  # small tensors: threads only contend
     from defuse_tpu_torch.cluster import native
     from defuse_tpu_torch.ops import split_dp_batch, split_dp_cuda
     from defuse_tpu_torch.pipeline.discover import discover_fusions
-    extra = dict(device="cpu", em_mode="oracle")
+    # "auto" without the library and with the device is the batched EM
+    extra = dict(device="cpu") if package.endswith("_device") \
+        else dict(device="cpu", em_mode="oracle")
     calls = []
     tie = split_dp_batch.dp_tie_columns
     split_dp_batch.dp_tie_columns = \
@@ -178,8 +197,8 @@ def no_native_runs(tmp_path_factory):
     procs = {pkg: subprocess.Popen(
         [sys.executable, "-c", NO_NATIVE.format(repo=str(REPO)), pkg,
          str(tmp)], env=env, cwd=tmp, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE) for pkg in ("defuse_tpu",
-                                            "defuse_tpu_torch")}
+        stderr=subprocess.PIPE) for pkg in (
+            "defuse_tpu", "defuse_tpu_torch", "defuse_tpu_torch_device")}
     for pkg, proc in procs.items():
         out, err = proc.communicate(timeout=600)
         assert proc.returncode == 0 and "DISCOVER_OK" in out, \
@@ -191,6 +210,16 @@ def no_native_runs(tmp_path_factory):
 def test_no_native_discover_matches_jax_package(no_native_runs, name):
     tmp, _paths = no_native_runs
     got = (tmp / "defuse_tpu_torch" / name).read_bytes()
+    assert got == (tmp / "defuse_tpu" / name).read_bytes()
+    assert got
+
+
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_no_native_device_em_matches_jax_package(no_native_runs, name):
+    """``em_mode="auto"`` without the library: the batched EM (here on CPU
+    tensors) in place of the oracle, the same bytes."""
+    tmp, _paths = no_native_runs
+    got = (tmp / "defuse_tpu_torch_device" / name).read_bytes()
     assert got == (tmp / "defuse_tpu" / name).read_bytes()
     assert got
 
@@ -217,12 +246,18 @@ def test_no_native_metrics_name_the_rowmax(no_native_runs):
     metrics = json.loads((tmp / "defuse_tpu_torch" /
                           "metrics.discover.json").read_text())
     assert metrics["counters"]["split_dp_impl"] == "torch"
+    assert metrics["counters"]["em_impl"] == "oracle"
     assert metrics["counters"]["rowmax_instances"] == 2 * 189
+    batched = json.loads((tmp / "defuse_tpu_torch_device" /
+                          "metrics.discover.json").read_text())["counters"]
+    assert batched["em_impl"] == "torch"
+    assert batched["em_select"]["n_instances"] > 0
     assert "discover:realign:collect" in [s["stage"]
                                           for s in metrics["stages"]]
 
 
-# --- what the port refuses, each naming its ROADMAP item --------------------
+# --- what the port refuses, each naming its ROADMAP item; what it no longer
+# refuses ---------------------------------------------------------------------
 
 def test_run_refuses_more_than_one_process(tmp_path):
     dist = types.SimpleNamespace(n_proc=2)
@@ -247,14 +282,41 @@ def test_run_needs_cuda_at_once(tmp_path):
     (dict(em_mode="device"), True),
     (dict(em_mode="device", use_device=True), False),
     (dict(em_mode="auto", use_device=True), False)])
-def test_device_em_names_its_roadmap_item(monkeypatch, kwargs, have_native):
+@pytest.mark.parametrize("table", ["empty", "fusion"])
+def test_device_em_names_its_roadmap_item(monkeypatch, tmp_path, kwargs,
+                                          have_native, table):
+    """The batched EM is ported (ROADMAP B6/A11, struck): each way of
+    asking for it runs it, on CPU tensors with ``device="cpu"``, and the
+    rows are the oracle's; a card that is absent raises instead of moving
+    the call."""
+    import torch
+    from defuse_tpu_torch.cluster import matepair_em_batch
     from defuse_tpu_torch.cluster.matepair_em import EMParams
-    from defuse_tpu_torch.io.sam import load_alignments
+    from defuse_tpu_torch.io.sam import iter_compact, load_alignments
+    params = EMParams(200.0, 20.0, 0.95, 3)
     monkeypatch.setattr(native, "available", lambda: have_native)
-    table = load_alignments(iter(()))
-    with pytest.raises(NotImplementedError, match="B6/A11"):
-        discordant.cluster_alignments(table, EMParams(200.0, 20.0, 0.95, 3),
-                                      **kwargs)
+    calls = []
+    run_batch = matepair_em_batch.run_batch
+    monkeypatch.setattr(
+        matepair_em_batch, "run_batch",
+        lambda *a, **kw: calls.append(kw["device"]) or run_batch(*a, **kw))
+
+    def load():
+        if table == "empty":
+            return load_alignments(iter(()))
+        paths = write_dataset(make_dataset(seed=31), tmp_path)
+        return load_alignments(iter_compact(str(paths["spanning"])))
+
+    with one_torch_thread():
+        rows = discordant.cluster_alignments(load(), params, device="cpu",
+                                             **kwargs)
+    want = discordant.cluster_alignments(load(), params, em_mode="oracle")
+    assert [r.format() for r in rows] == [r.format() for r in want]
+    assert calls == ([] if table == "empty" else ["cpu"])
+    assert (rows == []) == (table == "empty")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            discordant.cluster_alignments(load(), params, **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [dict(em_mode="auto", use_device=False),
@@ -267,3 +329,29 @@ def test_oracle_em_runs_without_native(monkeypatch, kwargs):
         load_alignments(iter(())), EMParams(200.0, 20.0, 0.95, 3),
         **kwargs)
     assert rows == []
+
+
+RANK_VARS = ("DEFUSE_COHORT_RANK", "DEFUSE_COHORT_NPROCS", "RANK",
+             "WORLD_SIZE", "JAX_PROCESS_ID", "JAX_NUM_PROCESSES")
+
+
+@pytest.mark.parametrize("env,want", [
+    ({}, (0, 1)),
+    ({"DEFUSE_COHORT_RANK": "2", "DEFUSE_COHORT_NPROCS": "5"}, (2, 5)),
+    ({"DEFUSE_COHORT_RANK": "0"}, (0, 1)),
+    ({"RANK": "1", "WORLD_SIZE": "4"}, (1, 4)),
+    ({"JAX_PROCESS_ID": "3", "JAX_NUM_PROCESSES": "8"}, (3, 8)),
+    ({"RANK": "1", "WORLD_SIZE": "4", "JAX_PROCESS_ID": "3",
+      "JAX_NUM_PROCESSES": "8"}, (1, 4)),
+    ({"DEFUSE_COHORT_RANK": "2", "DEFUSE_COHORT_NPROCS": "5", "RANK": "1",
+      "WORLD_SIZE": "4"}, (2, 5)),
+    ({"RANK": "1"}, (0, 1))])
+def test_cohort_rank_follows_the_launcher(monkeypatch, env, want):
+    """``_rank_nprocs`` under the cohort's own variables, ``torchrun``'s
+    and the reference launcher's, in that order."""
+    from defuse_tpu_torch.pipeline import cohort
+    for name in RANK_VARS:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert cohort._rank_nprocs() == want
