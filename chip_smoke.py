@@ -78,7 +78,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    seconds, the instances re-solved on the host, peak device memory, and
    from one ``torch.profiler`` pass over a segment of the whole batch the
    kernel launches an iteration and the device's busy share.  The EM is
-   plain PyTorch: it has no entry in the ``kernels`` line.
+   plain PyTorch: it has no entry in the ``kernels`` line;
+13. the multi-process path: ``defuse_tpu_torch.entry.entry()`` on the card
+   (``rowmax_kernel``) equal to ``entry(device="cpu")`` bit for bit, and
+   timed; the phase-9 dataset dealt into two fastq shards and run on two
+   processes in one gloo group, both on the card
+   (``parallel.launch.rank_device``): each rank's frontend with its global
+   fragment-id base, the read-stats sums gathered, rank 0
+   ``run_pipeline(dist=ctx)`` with the screen, rank 1
+   ``tail_partition_worker``; its results, ``clusters`` and
+   ``splitreads.break`` byte-identical to one process's ``run`` on the same
+   inputs; each rank's backend, world size, device, seconds and stages;
+   then ``dryrun_multichip(2)`` with both ranks on the card, its sharded
+   real discover byte-identical to the one-process run.  Every rank is a
+   child process with a limit; one that fails or runs over fails the
+   phase.
 
 All kernel comparisons are exact (integer results; tolerance 0).  Each
 kernel's bound is the larger of its least bytes over the card's memory
@@ -1301,6 +1315,234 @@ def phase_em(card, dataset, dev):
     return rec
 
 
+# --- phase 13 ---------------------------------------------------------------
+
+DIST_LIMIT_S = 300  # each rank's limit, and its gloo group's on a collective
+DIST_ARTIFACTS = ("results.tsv", "results.classify.tsv",
+                  "results.filtered.tsv", "clusters", "splitreads.break")
+
+
+def phase_entry(card, dev):
+    """``entry()`` on the card: ``rowmax_kernel`` launched, the outputs
+    equal to ``entry(device="cpu")`` bit for bit; then the forward step
+    timed with the kernel and with the plain version on the card."""
+    from defuse_tpu_torch.entry import entry
+    from defuse_tpu_torch.ops import split_dp_batch, split_dp_cuda
+    fn, args = entry("cuda")
+    split_dp_cuda.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = split_dp_cuda.LAUNCHES["split_dp_rowmax"]
+    cpu_fn, cpu_args = entry("cpu")
+    want = cpu_fn(*cpu_args)
+    for g, w, name in zip(got, want, ("max_score", "best_k")):
+        check(g.dtype == w.dtype and torch.equal(g.cpu(), w),
+              f"entry: {name} on the card differs from the CPU")
+    check(launches == 2, f"entry: rowmax_kernel launched {launches} times")
+    check(int((want[0] > 0).sum()) > 0, "entry: no split accepted")
+    r1p, r1l, rp, rl, r2p, r2l, rrp, mins = args
+
+    def plain():
+        return split_dp_batch.combine_split_scores(
+            split_dp_batch.dp_row_maxima(r1p, r1l, rp, rl),
+            split_dp_batch.dp_row_maxima(r2p, r2l, rrp, rl), rl, mins)
+
+    rec = {"launches": launches, "ms": time_ms(lambda: fn(*args), 20),
+           "plain_ms": time_ms(plain, 5)}
+    say(card, f"entry() on {dev}: (max_score, best_k) == entry(device="
+              f"'cpu') bit for bit, {int((want[0] > 0).sum())} of 64 "
+              f"accepted; rowmax_kernel launches {launches}; forward "
+              f"{rec['ms']:.4f} ms, with the plain version on the card "
+              f"{rec['plain_ms']:.3f} ms")
+    return rec
+
+
+def dist_run_child(work):
+    """Phase 13's rank (``--dist-run-child``, ``RANK``/``WORLD_SIZE``/
+    ``MASTER_*`` in its environment): the frontend over its shard with the
+    shard's global fragment-id base, the read-stats sums gathered, then
+    rank 0 ``run_pipeline(dist=ctx)`` on the card while the others run
+    ``tail_partition_worker``.  Prints one JSON line."""
+    import torch.distributed as dist
+    from defuse_tpu_torch.align import frontend
+    from defuse_tpu_torch.cluster import native
+    from defuse_tpu_torch.config import Config
+    from defuse_tpu_torch.ops import split_dp_cuda
+    from defuse_tpu_torch.parallel.launch import (
+        DistContext, allgather_read_stats_sums, init_distributed,
+        merge_artifacts, rank_device, tail_partition_worker)
+    from defuse_tpu_torch.pipeline.run import run_pipeline
+    meta = json.loads((work / "meta.json").read_text())
+    pid, n = init_distributed(timeout=DIST_LIMIT_S)
+    dev = rank_device(meta["device"])
+    ctx = DistContext(pid, n)
+    config = Config.read(meta["config"], meta["dataset"])
+    split_dp_cuda.reset_launches()
+    t0 = time.time()
+    prefix = meta["shard_prefixes"][pid]
+    with StageClock() as clock:
+        aligned = frontend.align_reads(config, str(work / f"rank{pid}"),
+                                       f"{prefix}.1.fastq",
+                                       f"{prefix}.2.fastq",
+                                       frag_base=pid * meta["per_shard"],
+                                       device=dev)
+        stats = allgather_read_stats_sums(
+            *native.read_stats_tbl_sums(aligned["pair_table"]))
+        ctx.barrier("frontend_done")
+        if pid == 0:
+            ranks = [work / f"rank{r}" for r in range(n)]
+            merged = merge_artifacts([r / "aligned" for r in ranks],
+                                     work / "merged")
+            run_pipeline(
+                config=config, output_dir=str(work / "out"),
+                library_name="smoke", spanning=merged["spanning.compact"],
+                improper=merged["improper.sam"], fastq1=meta["fastq1"],
+                fastq2=meta["fastq2"], concordant_sam=None,
+                read_stats=stats,
+                pair_table=[str(r / "aligned" / "cdna.pair.tbl")
+                            for r in ranks],
+                reads_sources=[(str(r / "reads" / "reads.1.fastq"),
+                                str(r / "reads" / "reads.2.fastq"),
+                                i * meta["per_shard"])
+                               for i, r in enumerate(ranks)],
+                gene_models_gtf=config.get_value("gene_models"),
+                genome_fasta=config.get_value("genome_fasta"),
+                repeats_regions=config.get_value("repeats_regions"),
+                use_device=True, device=dev, dist=ctx)
+        else:
+            tail_partition_worker(ctx, work / "out",
+                                  pair_table=aligned["pair_table"])
+    seconds = time.time() - t0
+    launches = dict(split_dp_cuda.LAUNCHES)
+    rec = {"rank": pid, "world_size": n, "backend": dist.get_backend(),
+           "device": str(dev), "seconds": seconds, "launches": launches,
+           "stages": clock.stages(work / "out") if pid == 0 else
+           {k: round(v, 3) for k, v in clock.seconds.items()}}
+    ctx.barrier("pipeline_done")
+    check_no_reference_modules()
+    dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def dist_ranks(work, n):
+    """Start ``n`` ranks of ``dist_run_child`` and wait for every one within
+    DIST_LIMIT_S; a rank that fails or runs over fails the phase, the
+    others killed.  Returns their JSON lines in rank order."""
+    from defuse_tpu_torch.entry import _free_port
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--dist-run-child",
+         str(work)], cwd=REPO, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                 LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port))) for r in range(n)]
+    recs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=DIST_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                check(False, f"dist run: rank {r} still running after "
+                             f"{DIST_LIMIT_S} s")
+            check(p.returncode == 0, f"dist run: rank {r} exited "
+                                     f"{p.returncode}: {err[-3000:]}")
+            recs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return recs
+
+
+def phase_dist_run(card, work, dataset, dev):
+    """The phase-9 dataset through ``run`` on two processes sharing the
+    card (gloo), against one process on the same inputs."""
+    from defuse_tpu_torch.align.frontend import align_reads
+    from defuse_tpu_torch.config import Config
+    from defuse_tpu_torch.ops import split_dp_cuda
+    from defuse_tpu_torch.parallel.shard import split_fastq
+    from defuse_tpu_torch.pipeline.run import run_pipeline
+    _ds, _paths, n_pairs = dataset
+    meta = {"config": str(work / "run_refs" / "config.txt"),
+            "dataset": str(work / "run_dataset"),
+            "per_shard": -(-n_pairs // 2), "device": dev.type}
+    config = Config.read(meta["config"], meta["dataset"])
+    one = work / "dist_one"
+    split_dp_cuda.reset_launches()
+    t0 = time.time()
+    aligned = align_reads(config, str(one), *raw_fastqs(work), device=dev)
+    run_pipeline(config=config, output_dir=str(one), library_name="smoke",
+                 gene_models_gtf=config.get_value("gene_models"),
+                 genome_fasta=config.get_value("genome_fasta"),
+                 repeats_regions=config.get_value("repeats_regions"),
+                 use_device=True, device=dev, **aligned)
+    t_one = time.time() - t0
+    one_screens = split_dp_cuda.LAUNCHES["split_dp_screen"]
+    two = work / "dist_two"
+    meta.update(fastq1=aligned["fastq1"], fastq2=aligned["fastq2"],
+                shard_prefixes=split_fastq(
+                    *raw_fastqs(work), str(two / "shards"),
+                    reads_per_job=meta["per_shard"]))
+    check(len(meta["shard_prefixes"]) == 2, "dist run: not two shards")
+    (two / "meta.json").write_text(json.dumps(meta))
+    t0 = time.time()
+    recs = dist_ranks(two, 2)
+    t_two = time.time() - t0
+    for name in DIST_ARTIFACTS:
+        a = (two / "out" / name).read_bytes()
+        check(a == (one / name).read_bytes(),
+              f"dist run: {name} differs between two processes and one")
+        check(len(a) > 0, f"dist run: {name} is empty")
+    counters = json.loads((two / "out" / "metrics.discover.json")
+                          .read_text())["counters"]
+    check(counters.get("split_dp_impl") == IMPL[dev.type] and
+          counters.get("em_impl") == "native",
+          f"dist run: counters {counters}")
+    screens = recs[0]["launches"]["split_dp_screen"]
+    check(screens >= 1 or dev.type == "cpu",
+          "dist run: the screen never launched on rank 0")
+    check(all(r["backend"] == "gloo" and r["world_size"] == 2
+              for r in recs), f"dist run: {recs}")
+    say(card, f"run on 2 processes ({n_pairs} pairs dealt into 2 shards): "
+              f"{t_two:.3f} s wall from the start of the ranks (rank "
+              f"seconds {[round(r['seconds'], 3) for r in recs]}), one "
+              f"process {t_one:.3f} s (screen launches {one_screens}); "
+              f"{len(DIST_ARTIFACTS)} artifacts byte-identical; screen "
+              f"launches on rank 0 {screens}; ranks: " + "; ".join(
+                  f"{r['rank']} {r['backend']} world {r['world_size']} on "
+                  f"{r['device']}" for r in recs))
+    say(card, f"run on 2 processes, rank 0 stages (s): {recs[0]['stages']}; "
+              f"rank 1 (s): {recs[1]['stages']}")
+    return {"seconds": t_two, "one_process_s": t_one, "ranks": recs,
+            "screen_launches": screens}
+
+
+def phase_dryrun(card, device):
+    """``dryrun_multichip(2)`` with both ranks on the card."""
+    from defuse_tpu_torch.entry import dryrun_multichip
+    rec = dryrun_multichip(2, device=device, timeout=DIST_LIMIT_S)
+    ranks = rec["ranks"]
+    check(all(r["backend"] == "gloo" and r["device"].startswith(device)
+              for r in ranks), f"dryrun: {ranks}")
+    rowmax = [r["launches"]["split_dp_rowmax"] for r in ranks]
+    check(all(k >= 3 for k in rowmax) or device == "cpu",
+          f"dryrun: rowmax_kernel launches by rank {rowmax}")
+    say(card, f"dryrun_multichip(2): {rec['seconds']:.3f} s; ranks on "
+              f"{[r['device'] for r in ranks]} ({ranks[0]['backend']}), "
+              f"mesh {ranks[0]['mesh']['shape']}; step "
+              f"{[round(r['step_s'], 3) for r in ranks]} s, one-process "
+              f"discover {ranks[0]['single_s']:.3f} s, sharded discover "
+              f"{[round(r['sharded_s'], 3) for r in ranks]} s; "
+              f"{ranks[0]['em_rows']} EM rows and "
+              f"{ranks[0]['rowmax_instances']} row-maxima instances sharded; "
+              f"rowmax_kernel launches by rank {rowmax}")
+    return {"seconds": rec["seconds"], "rowmax_launches": sum(rowmax),
+            "ranks": ranks}
+
+
 def bound(work_bytes, ops_ms):
     """(bound ms, what bounds): the larger of the least bytes over the
     card's memory rate and the least operations' time."""
@@ -1312,6 +1554,8 @@ def bound(work_bytes, ops_ms):
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--no-native-child":
         return no_native_child(pathlib.Path(sys.argv[2]), *sys.argv[3:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-run-child":
+        return dist_run_child(pathlib.Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -1368,6 +1612,10 @@ def main() -> int:
         phase_cohort(card, work, dataset, "cuda")
         # --- phase 12: the batched EM ------------------------------------
         em_rec = phase_em(card, dataset, dev)
+        # --- phase 13: the multi-process path ----------------------------
+        entry_rec = phase_entry(card, dev)
+        dist_rec = phase_dist_run(card, work, dataset, dev)
+        dryrun_rec = phase_dryrun(card, "cuda")
     # --- phase 8: probe and roofline -------------------------------------
     err_probe, probe_ms, probe_plain_ms, probe_work = \
         phase_probe_equals_plain(card, dev)
@@ -1392,15 +1640,21 @@ def main() -> int:
 
     rowmax_bound, rowmax_by = bound(
         no_native["bytes"], sc.screen_bound_ms(no_native["cells"], cost16))
-    rowmax = {"launches": no_native["launches"]["split_dp_rowmax"],
+    rowmax_by_path = {"no_native": no_native["launches"]["split_dp_rowmax"],
+                      "entry": entry_rec["launches"],
+                      "dryrun": dryrun_rec["rowmax_launches"]}
+    rowmax = {"launches": sum(rowmax_by_path.values()),
+              "launches_by_path": rowmax_by_path,
               "max_abs_err": max(err_rowmax, no_native["err"]),
               "instances": no_native["instances"], "R": no_native["R"],
               "L": no_native["L"], "cells": no_native["cells"],
               "ms": no_native["ms"], "plain_ms": no_native["plain_ms"],
               "bound_ms": rowmax_bound, "bound_by": rowmax_by,
-              "library_ms": None, "dp_tie_columns": no_native["tie"]}
-    say(card, f"rowmax_kernel on the no-native route: {rowmax['launches']} "
-              f"launch for {rowmax['instances']} instances, "
+              "library_ms": None, "dp_tie_columns": no_native["tie"],
+              "entry": {k: entry_rec[k] for k in ("ms", "plain_ms")}}
+    say(card, f"rowmax_kernel on the no-native route: "
+              f"{rowmax_by_path['no_native']} launch for "
+              f"{rowmax['instances']} instances, "
               f"{rowmax['ms']:.4f} ms, bound {rowmax_bound:.4f} ms by "
               f"{rowmax_by} ({100 * rowmax_bound / rowmax['ms']:.1f}% of "
               f"bound, {rowmax['cells']} cells), plain "
@@ -1414,10 +1668,11 @@ def main() -> int:
         "source": "defuse_tpu_torch/csrc/split_dp.cu",
         "replaces": "defuse_tpu/ops/split_dp_pallas.py:222",
         "launches": screen_launches["split_dp_screen"]
-        + run_launches["split_dp_screen"],
+        + run_launches["split_dp_screen"] + dist_rec["screen_launches"],
         "launches_by_path": {
             "discover": screen_launches["split_dp_screen"],
-            "run": run_launches["split_dp_screen"]},
+            "run": run_launches["split_dp_screen"],
+            "dist_run": dist_rec["screen_launches"]},
         "max_abs_err": err_screen, "ms": main_ms,
         "plain_ms": main_plain_ms, "bound_ms": screen_bound,
         "bound_by": screen_by, "library_ms": None,
@@ -1447,7 +1702,8 @@ def main() -> int:
                   f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
                   f"({100 * k['bound_ms'] / k['ms']:.1f}%)" for k in kernels))
     print(json.dumps({"em": em_rec,
-                      "no_native_device_em": no_native["device_em"]}),
+                      "no_native_device_em": no_native["device_em"],
+                      "dist_run": dist_rec, "dryrun": dryrun_rec}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

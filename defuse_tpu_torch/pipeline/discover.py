@@ -22,6 +22,7 @@ PyTorch versions on CPU tensors.
 
 from __future__ import annotations
 
+import json
 import os
 import pathlib
 
@@ -43,6 +44,7 @@ from ..io.fasta import FastaStore
 from ..io.sam import iter_compact, iter_sam, load_alignments
 from ..ops.split_dp_batch import pad_batch
 from ..ops.split_dp_cuda import dp_row_maxima_cuda, screen_candidates
+from ..parallel.shard import merge_cluster_parts
 from ..utils import checks
 from ..utils.profiling import Tracer, device_trace
 from .regions import align_regions_file
@@ -78,16 +80,19 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     "native", "oracle" (the Python EM, exact) or "device" (the batched EM
     on ``device``, decision-equivalent).  ``metrics.discover.json`` names
     the EM that ran as ``em_impl``: native, oracle, cuda, or torch where
-    ``device="cpu"`` was passed.  One process: ``dist`` with more than one
-    and ``reads_sources`` raise (ROADMAP B7/A12).
+    ``device="cpu"`` was passed.
+
+    Distributed tail: with a ``dist`` (``parallel.launch.DistContext``) of
+    more than one process, rank 0 publishes the clustering inputs, clusters
+    its share of the bin pairs while ``cluster_partition_worker`` clusters
+    the others' on their ranks, and merges the parts; both barriers run on
+    every path.  ``reads_sources``, (fastq1, fastq2, frag_base) triples
+    naming each rank's indexed shard store, lets the native realign driver
+    read candidates through one grouped store.
     """
     if em_mode not in EM_MODES:
         raise ValueError(f"em_mode {em_mode!r}: the port runs "
                          f"{', '.join(EM_MODES)}")
-    if (dist is not None and dist.n_proc > 1) or reads_sources:
-        raise NotImplementedError(
-            "the port's discover runs on one process: the distributed tail "
-            "(dist, reads_sources) is not ported (ROADMAP B7/A12)")
     dev = require_cuda(device) if use_device or em_mode == "device" \
         else None
 
@@ -105,11 +110,16 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
 
     # --- clustering -----------------------------------------------------
     clusters_path = out / "clusters"
-    reads_handle = _reads_handle(out, fastq1, fastq2) if have_native \
-        else None
-    if em_mode in ("auto", "native") and have_native:
+    reads_handle = _reads_handle(out, fastq1, fastq2, reads_sources) \
+        if have_native else None
+    native_cluster = em_mode in ("auto", "native") and have_native
+    if dist is not None and dist.n_proc > 1:
+        _cluster_rendezvous(dist, out, spanning, params, native_cluster,
+                            clusters_path)
+    elif native_cluster:
         # full native file->file driver: parse + bin + filter + EM + emit
         native.clustermatepairs(spanning, clusters_path, params)
+    if native_cluster:
         tracer.counters["em_impl"] = "native"
     else:
         table = load_alignments(iter_compact(spanning))
@@ -272,10 +282,58 @@ def _rowmax_fn(dev, tracer):
     return rowmax_fn
 
 
-def _reads_handle(out, fastq1, fastq2):
+def _cluster_rendezvous(dist, out, spanning, params, native_cluster,
+                        clusters_path):
+    """Rank 0's side of the distributed clustering
+    (``defuse_run.pl:448-459`` fans clustering per chr-pair across jobs):
+    every rank owns the bin pairs with canonical index = rank (mod n); rank
+    0 publishes the exact inputs, clusters its share, and interleaves the
+    parts back byte-identically.  The rendezvous (partmeta publish and both
+    barriers) runs whenever a DistContext is live, also when this rank
+    clusters locally (an em_mode or native-library disagreement), so the
+    other ranks are never stranded in a barrier; the published ``mode``
+    tells them which side they are on."""
+    mode = "part" if native_cluster else "local"
+    (out / "clusters.partmeta.json").write_text(json.dumps({
+        "mode": mode,
+        "frag_mean": float(params.fragment_mean).hex(),
+        "frag_std": float(params.fragment_stddev).hex(),
+        "precision": float(params.precision).hex(),
+        "min_cluster_size": int(params.min_cluster_size),
+        "spanning": str(spanning)}))
+    dist.barrier("cluster_inputs")
+    dist.cluster_inputs_done = True
+    if native_cluster:
+        native.clustermatepairs_part(
+            spanning, out / "clusters.part0", out / "clusters.part0.counts",
+            params, 0, dist.n_proc)
+    dist.barrier("cluster_parts")
+    dist.cluster_parts_done = True
+    dist.cluster_rendezvous_done = True
+    if native_cluster:
+        merge_cluster_parts(
+            [out / f"clusters.part{r}" for r in range(dist.n_proc)],
+            [out / f"clusters.part{r}.counts" for r in range(dist.n_proc)],
+            clusters_path)
+
+
+def _reads_handle(out, fastq1, fastq2, reads_sources=None):
     """Native read store for the realign driver, picked as the reference
-    picks it: the ``.fqi``-indexed store, else an eager parse in native
-    threads."""
+    picks it: the per-rank shard stores of ``reads_sources`` grouped by
+    global fragment-id base, else the ``.fqi``-indexed store of the whole
+    library, else an eager parse in native threads."""
+    if reads_sources:
+        # the per-rank frontends already indexed their own shards: group
+        # those stores instead of building a whole-library index
+        parts = [native.reads_index(f1, f2) for f1, f2, _b in reads_sources]
+        if all(p is not None for p in parts):
+            handle = native.reads_group(parts, [b for _f1, _f2, b in
+                                                reads_sources])
+            if handle is not None:
+                return handle
+        for p in parts:
+            if p is not None:
+                native.reads_free(p)
     handle = native.reads_index(fastq1, fastq2)
     if handle is None:
         # renamed fastqs without the sidecar index: build the offset index

@@ -16,8 +16,9 @@ reruns resume):
 
 The device stage runs on ``device`` ("cuda" unless the caller passes
 "cpu", which takes the plain PyTorch versions); ``use_device=False`` keeps
-the whole run on the host.  One process: a ``dist`` of more than one
-raises (ROADMAP B7/A12).
+the whole run on the host.  A run on more than one process passes a
+``dist`` (``parallel.launch.DistContext``) on rank 0 while the other ranks
+run ``parallel.launch.tail_partition_worker``.
 """
 
 from __future__ import annotations
@@ -70,16 +71,13 @@ def _notify_completion(config: Config, library_name: str,
 
 def run_pipeline(**kwargs):
     """``_run_pipeline`` plus the reference's completion/failure
-    notification contract (see ``_notify_completion``).  The distributed
-    tail is not ported (ROADMAP B7/A12): a ``dist`` of more than one
-    process raises before anything runs, so the abort rendezvous below is
-    kept as text and never reached."""
+    notification contract (see ``_notify_completion``) and, when a
+    DistContext is live, the distributed-abort contract: any rank-0
+    failure BEFORE the clustering rendezvous publishes an abort
+    partmeta and drains both barriers so ranks>0 can never be left
+    blocked in the gloo barrier (ADVICE r4 medium)."""
     status = "failure"
     dist = kwargs.get("dist")
-    if dist is not None and getattr(dist, "n_proc", 1) > 1:
-        raise NotImplementedError(
-            "run_pipeline on more than one process is not ported "
-            "(ROADMAP B7/A12): the collectives and parallel/launch.py wait")
     try:
         result = _run_pipeline(**kwargs)
         status = "success"

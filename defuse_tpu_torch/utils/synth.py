@@ -8,9 +8,11 @@ importing anything outside the package:
 * ``build_dataset`` with the discover settings it was made for (``MEAN``,
   ``STD``, ``PREC``, ``MINCL``, ``MINREAD``, ``MAXREAD``): the multi-fusion
   dataset of ``bench.py``, file for file;
-* ``Gene``, ``SynthDataset``, ``random_seq``, ``write_dataset``,
-  ``write_gtf``, ``write_genome_fasta``, ``write_repeats``: the
-  synthetic-genome helpers of ``tests/synthdata.py`` that it needs;
+* ``Gene``, ``SynthDataset``, ``random_seq``, ``make_dataset``,
+  ``write_dataset``, ``write_gtf``, ``write_genome_fasta``,
+  ``write_repeats``: the synthetic-genome helpers of ``tests/synthdata.py``
+  that it needs (``make_dataset``: the one-fusion dataset of the multi-process
+  dryrun in ``entry.py``);
 * ``write_run_config``, ``planted_pairs``, ``deal_fastq``: what a whole
   ``run`` needs beside the reads (a config file naming the genome, the gene
   models and the repeats, from which ``create-ref`` derives the dataset
@@ -38,6 +40,7 @@ from ..ops.split_dp_batch import pad_batch
 
 MEAN, STD, PREC, MINCL = 200.0, 20.0, 0.95, 3
 MINREAD = MAXREAD = 50
+READ_LEN = 50  # make_dataset's reads
 
 N_FUSIONS = 96
 FRAGS_PER_FUSION = 150
@@ -112,6 +115,120 @@ class SynthDataset:
 
     def gene_by_transcript(self, t):
         return next(g for g in self.genes if g.transcript == t)
+
+
+def make_dataset(seed: int = 7, n_fusion_frags: int = 120,
+                 n_background_frags: int = 60,
+                 frag_mean: float = 200.0, frag_std: float = 20.0,
+                 fusion_pair: tuple[str, str] = ("TA", "TB"),
+                 break_a: int = 1700, break_b: int = 1500):
+    rng = random.Random(seed)
+    genome = {
+        "1": random_seq(rng, 120000),
+        "2": random_seq(rng, 120000),
+    }
+
+    genes = [
+        Gene("GA", "TA", "1", 0,
+             [(20000, 20800), (22000, 22900), (24000, 24700),
+              (26000, 26900)]),
+        Gene("GB", "TB", "2", 0,
+             [(40000, 40900), (42000, 42800), (44000, 44900),
+              (46000, 46800)]),
+        Gene("GC", "TC", "1", 1,
+             [(60000, 60700), (62000, 62600), (64000, 64800)]),
+        Gene("GD", "TD", "2", 1,
+             [(80000, 80600), (82000, 82700), (84000, 84500)]),
+    ]
+
+    by_transcript = {g.transcript: g for g in genes}
+    ga = by_transcript[fusion_pair[0]]
+    gb = by_transcript[fusion_pair[1]]
+    cdna_a = ga.cdna(genome)
+    cdna_b = gb.cdna(genome)
+
+    # fusion: A[1..break_a] + B[break_b..] (transcript space)
+    fusion_seq = cdna_a[:break_a] + cdna_b[break_b - 1:]
+
+    reads1: list[str] = []
+    reads2: list[str] = []
+    sam_rows: list[tuple] = []
+
+    def emit_alignments(frag_id, read_end, tpos_start, gene, read_seq,
+                        read_from_plus):
+        """Emit cdna + (when intra-exon) genome alignment rows for a read
+        lying entirely within ``gene``'s transcript at 1-based transcript
+        position ``tpos_start``.  ``read_from_plus``: read sequence equals
+        transcript-forward slice (strand + on cdna)."""
+        ref_cdna = f"{gene.name}|{gene.transcript}"
+        strand = 0 if read_from_plus else 1
+        sam_rows.append((frag_id, read_end, ref_cdna, strand, tpos_start,
+                         read_seq))
+        # genome alignment when contained in a single exon
+        g_start = gene.transcript_to_genome(tpos_start)
+        g_end = gene.transcript_to_genome(tpos_start + READ_LEN - 1)
+        if abs(g_end - g_start) == READ_LEN - 1:
+            gs = min(g_start, g_end)
+            if gene.strand == 1:
+                g_strand = 1 - strand
+            else:
+                g_strand = strand
+            sam_rows.append((frag_id, read_end, gene.chromosome, g_strand,
+                             gs, read_seq))
+
+    frag_id = 0
+
+    # --- fusion-spanning fragments --------------------------------------
+    for _ in range(n_fusion_frags):
+        flen = max(2 * READ_LEN,
+                   int(rng.gauss(frag_mean, frag_std)))
+        start = rng.randint(max(1, break_a - flen + 10),
+                            min(break_a + 40, len(fusion_seq) - flen))
+        frag = fusion_seq[start - 1:start - 1 + flen]
+        r1 = frag[:READ_LEN]
+        r2 = revcomp(frag[-READ_LEN:])
+        reads1.append(r1)
+        reads2.append(r2)
+
+        # read 1 forward at fusion pos [start, start+49]
+        r1_end = start + READ_LEN - 1
+        r2_start = start + flen - READ_LEN
+        r2_end = start + flen - 1
+        if r1_end <= break_a:
+            emit_alignments(frag_id, 0, start, ga, r1, True)
+        elif start > break_a:
+            tb_pos = start - break_a + break_b - 1
+            emit_alignments(frag_id, 0, tb_pos, gb, r1, True)
+        # else: crosses the breakpoint -> unaligned (split candidate)
+
+        if r2_start > break_a:
+            tb_pos = r2_start - break_a + break_b - 1
+            emit_alignments(frag_id, 1, tb_pos, gb, r2, False)
+        elif r2_end <= break_a:
+            emit_alignments(frag_id, 1, r2_start, ga, r2, False)
+        # else crosses breakpoint
+        frag_id += 1
+
+    # --- concordant background fragments --------------------------------
+    for _ in range(n_background_frags):
+        gene = rng.choice(genes)
+        cdna = gene.cdna(genome)
+        flen = max(2 * READ_LEN, int(rng.gauss(frag_mean, frag_std)))
+        if flen >= len(cdna):
+            flen = len(cdna) - 1
+        start = rng.randint(1, len(cdna) - flen)
+        frag = cdna[start - 1:start - 1 + flen]
+        r1 = frag[:READ_LEN]
+        r2 = revcomp(frag[-READ_LEN:])
+        reads1.append(r1)
+        reads2.append(r2)
+        emit_alignments(frag_id, 0, start, gene, r1, True)
+        emit_alignments(frag_id, 1, start + flen - READ_LEN, gene, r2,
+                        False)
+        frag_id += 1
+
+    return SynthDataset(genome, genes, ("TA", break_a, "TB", break_b),
+                        fusion_seq, reads1, reads2, sam_rows)
 
 
 def write_dataset(ds: SynthDataset, outdir):

@@ -152,7 +152,6 @@ def test_port_with_gene_models_matches_jax_package(dataset):
 
 @pytest.mark.parametrize("mode,error,item", [
     ({"em_mode": "batched"}, ValueError, "auto, native, oracle, device"),
-    ({"reads_sources": [("a", "b", 0)]}, NotImplementedError, "B7/A12"),
     ({"em_mode": "device"}, None, None)])
 def test_port_refuses_unported_modes(dataset, mode, error, item):
     """What the port still refuses writes nothing; ``em_mode="device"`` is
@@ -203,3 +202,41 @@ def test_port_oracle_em_matches_native_em(dataset, port_run):
     for name in ARTIFACTS:
         assert (port_dir / name).read_bytes() == \
             (tmp / "oracle" / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_port_reads_sources_match(dataset, port_run, n_parts, monkeypatch):
+    """``reads_sources`` (the distributed tail's per-rank read stores, each
+    with its own ``.fqi`` and fragment ids from 0, grouped by global
+    fragment-id base) gives the artifacts of the run without it, through
+    one grouped store."""
+    tmp, kw = dataset
+    lines = [open(kw[f"fastq{end}"]).read().splitlines(True)
+             for end in (1, 2)]
+    n_frags = len(lines[0]) // 4
+    bases = [i * -(-n_frags // n_parts) for i in range(n_parts)]
+    sources = []
+    for i, lo in enumerate(bases):
+        part = tmp / f"reads_sources{n_parts}" / f"part{i}"
+        part.mkdir(parents=True)
+        hi = bases[i + 1] if i + 1 < n_parts else n_frags
+        for end in (1, 2):
+            with open(part / f"reads.{end}.fastq", "w") as fh:
+                for frag in range(lo, hi):
+                    fh.write(f"@{frag - lo}/{end}\n")
+                    fh.writelines(lines[end - 1][4 * frag + 1:4 * frag + 4])
+        fq = [str(part / f"reads.{end}.fastq") for end in (1, 2)]
+        assert native.build_fqi(*fq, str(part / "reads.fqi"))
+        sources.append((*fq, lo))
+    grouped = []
+    reads_group = port.native.reads_group
+    monkeypatch.setattr(port.native, "reads_group", lambda *a: grouped.append(
+        reads_group(*a)) or grouped[-1])
+    out = tmp / f"reads_sources{n_parts}" / "out"
+    port.discover_fusions(outdir=str(out), device="cpu",
+                          reads_sources=sources, **kw)
+    assert [g is not None for g in grouped] == [True]
+    port_dir, _ = port_run
+    for name in ARTIFACTS:
+        assert (out / name).read_bytes() == (port_dir / name).read_bytes(), \
+            name

@@ -34,7 +34,8 @@ COPIED = (
     "io/bam.py", "cli/get_reads.py", "cli/exporters.py",
     "cli/expression_plot.py", "pipeline/create_ref.py",
     "pipeline/acquire.py", "pipeline/cohort.py", "cli/main.py",
-    "cli/__init__.py", "__main__.py", "cluster/matepair_em_batch.py")
+    "cli/__init__.py", "__main__.py", "cluster/matepair_em_batch.py",
+    "parallel/launch.py")
 
 # module: (why it differs, names whose source must still be the reference's)
 DIVERGED = {
@@ -58,11 +59,22 @@ DIVERGED = {
         ("ClusterRow", "BinPairTask", "collect_bin_pair_tasks",
          "emit_cluster_rows", "strand_remap_vec", "write_clusters")),
     "pipeline/run.py": (
-        "run_pipeline takes device, checks the card up front where the "
-        "reference starts its probe, and refuses more than one process "
-        "(ROADMAP B7/A12); it binds the port's discover_fusions",
-        ("_notify_completion", "_read_stats_file", "_span_stats",
-         "_span_stats_from_breaks", "materialize_cov_samples")),
+        "_run_pipeline takes device and checks the card up front where the "
+        "reference starts its probe; it binds the port's discover_fusions",
+        ("run_pipeline", "_notify_completion", "_read_stats_file",
+         "_span_stats", "_span_stats_from_breaks",
+         "materialize_cov_samples")),
+    "parallel/launch.py": (
+        "init_distributed joins a gloo process group from torchrun's "
+        "variables or the reference launcher's (and refuses "
+        "JAX_AUTO_DISTRIBUTED); rank_device is the port's; "
+        "DistContext.barrier gathers the barrier names and raises on a "
+        "mismatch; _allgather_bits gathers int32 views with "
+        "torch.distributed; global_mesh is a DeviceMesh over the ranks",
+        ("abort_cluster_partition", "cluster_partition_worker",
+         "tail_partition_worker", "merge_artifacts", "merge_stats_files",
+         "allgather_read_stats", "allgather_read_stats_sums",
+         "MAX_READLEN_GATHER")),
     "pipeline/cohort.py": (
         "run_cohort takes device, checks the card before any library "
         "starts and hands --device to each library's run; _rank_nprocs "
@@ -135,7 +147,7 @@ def test_host_module_is_the_reference_source(module):
 
 def test_diverged_names_only_copied_modules():
     assert set(DIVERGED) <= set(COPIED)
-    assert len(COPIED) == len(set(COPIED)) == 53
+    assert len(COPIED) == len(set(COPIED)) == 54
 
 
 def test_tie_column_enumeration_names_its_roadmap_item():
@@ -191,8 +203,8 @@ def test_synth_dataset_is_the_bench_dataset(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["Gene", "SynthDataset", "random_seq",
-                                  "write_dataset", "write_gtf",
-                                  "write_repeats"])
+                                  "make_dataset", "write_dataset",
+                                  "write_gtf", "write_repeats"])
 def test_synth_helpers_are_the_test_helpers_source(name):
     from defuse_tpu_torch.utils import synth
     import synthdata

@@ -1,5 +1,7 @@
 """The port never imports ``jax`` nor anything of ``defuse_tpu``:
-importing every module of ``defuse_tpu_torch`` and running its discover,
+importing every module of ``defuse_tpu_torch`` and running its entry point
+(``entry.entry``), its launch layer on one process
+(``parallel/launch.py``), its discover,
 its aligner frontend (every candidate verified by the port's verifier)
 and its command line (``create-ref``, ``run``, ``cohort``) on the CPU
 leaves ``jax``, ``defuse_tpu``, ``bench`` and the
@@ -41,6 +43,17 @@ for mod in pkgutil.walk_packages(defuse_tpu_torch.__path__,
                                  "defuse_tpu_torch."):
     importlib.import_module(mod.name)
 assert not foreign(), ("importing the port imported", foreign())
+
+# the multi-process layer and the entry points of entry.py, on one process
+from defuse_tpu_torch import entry
+from defuse_tpu_torch.parallel import launch
+for name in ("RANK", "WORLD_SIZE", "JAX_COORDINATOR", "JAX_PROCESS_ID"):
+    os.environ.pop(name, None)
+assert launch.init_distributed() == (0, 1)
+launch.DistContext(0, 1).barrier("no_jax")
+fn, args = entry.entry(device="cpu")
+assert fn(*args)[0].shape == (64,)
+assert not foreign(), foreign()
 
 from defuse_tpu_torch.pipeline.discover import discover_fusions
 data = tmp / "data"

@@ -12,7 +12,6 @@ import contextlib
 import pathlib
 import subprocess
 import sys
-import types
 
 import pytest
 
@@ -256,16 +255,7 @@ def test_no_native_metrics_name_the_rowmax(no_native_runs):
                                           for s in metrics["stages"]]
 
 
-# --- what the port refuses, each naming its ROADMAP item; what it no longer
-# refuses ---------------------------------------------------------------------
-
-def test_run_refuses_more_than_one_process(tmp_path):
-    dist = types.SimpleNamespace(n_proc=2)
-    with pytest.raises(NotImplementedError, match="B7/A12"):
-        port_run.run_pipeline(config=None, output_dir=str(tmp_path / "out"),
-                              dist=dist)
-    assert not (tmp_path / "out").exists()
-
+# --- what the port refuses; what it no longer refuses --------------------------
 
 def test_run_needs_cuda_at_once(tmp_path):
     import torch
