@@ -19,10 +19,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    an exact check against the plain version on a 65,536-read subsample,
    and survivors == the planted junction reads;
 5. end to end: ``defuse_tpu_torch`` discover on the 92,800-pair bench
-   dataset, its artifacts byte-identical to its own host-only run
-   (``use_device=False``: every candidate realigned, no screen), with the
-   screen kernel's launches counted.  Identity with ``defuse_tpu`` itself
-   is held by ``tests/test_torch_discover.py``;
+   dataset with ``DEFUSE_DEVICE_SCREEN=force``, its artifacts byte-identical
+   to its own host-only run (``use_device=False``: every candidate
+   realigned, no screen), with the screen kernel's launches counted.
+   Identity with ``defuse_tpu`` itself is held by
+   ``tests/test_torch_discover.py``;
 6. verify kernel = plain version, exactly, on edge cases (every lane,
    candidates in the plane's last word, read lengths 0, 1, 9, 10, 11 and
    L, N on either side, repeated reads) at a read length for each of its
@@ -39,7 +40,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``DEFUSE_DEVICE_VERIFY=force`` (the Python seed path, every candidate
    verified by the kernel, one launch for each call of the verifier) and
    on the native route, artifacts byte-identical, the kernel's launches
-   counted, both wall times;
+   counted (``align.frontend.VERIFY_CALLS`` agrees), both wall times, and
+   the verifier's calls kept for phase 14;
 8. probe and roofline: each issue-probe mix = its plain version exactly;
    the census of the probe's loops and of every row loop of the screen
    kernels against the machine code (``cuobjdump -sass``), within 20% per
@@ -51,8 +53,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    written by ``utils.synth.write_run_config``), once on the card and once
    with ``--no-device``: results, annotations and discover artifacts
    byte-identical between the two, every planted gene pair in
-   ``results.classify.tsv``, ``split_dp_impl == "cuda"``, the screen's
-   launches counted, and the stage seconds of both runs;
+   ``results.classify.tsv``, the screen's launches those that the recorded
+   ``screen_route`` implies (``auto``), and the stage seconds of both runs;
 10. discover without the native library, in a child process with
    ``DEFUSE_NO_NATIVE=1``, on the dataset cut to NO_NATIVE_FUSIONS fusions
    and NO_NATIVE_BACKGROUND background pairs (the Python EM and the Python
@@ -92,20 +94,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    then ``dryrun_multichip(2)`` with both ranks on the card, its sharded
    real discover byte-identical to the one-process run.  Every rank is a
    child process with a limit; one that fails or runs over fails the
-   phase.
+   phase;
+14. routing: discover with the screen forced and off, alternated
+   ROUTE_REPS times each in this process, at the bench dataset's shape and
+   at the ``run``'s (phase 9's discover inputs), every run's artifacts the
+   same bytes: wall and ``realign:emit`` (median, spread); discover once
+   under ``auto`` with its ``[discover] screen:`` line; the verifier at
+   each of phase 7's calls on the device and on the numpy oracle,
+   alternated, counts equal in bounds, and once under ``auto``; the link
+   (pageable copies at the screen's and the largest verify call's operand
+   sizes, an empty launch's round trip); the cost models' rates fitted from
+   these runs and phase 12's EM, each printed beside the constant in use;
+   ``routing.routing_table()`` at the bench shapes; and each decision's
+   route against the route measured faster: the phase fails only where the
+   model picks the slower route by more than the measured spread.
 
 All kernel comparisons are exact (integer results; tolerance 0).  Each
 kernel's bound is the larger of its least bytes over the card's memory
 rate and its least operations at the probe's measured issue rates; the
 verify's is printed for each of its shapes, beside the same bytes counted
 in 32 B sectors.  Prints a line of each kernel's time, launches and bound,
-a JSON line of per-kernel results (the verify's at shape B, the order the
+a JSON line of the EM, multi-process and routing records, a JSON line of
+per-kernel results (the verify's at shape B, the order the
 main path sends, with all three shapes under ``shapes``), then
 ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -166,6 +183,38 @@ def check(cond, msg):
 
 def say(card, msg):
     print(f"[{card}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """``os.environ`` with ``values`` set, restored on the way out."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def screen_launches_implied(outdir, launches, label):
+    """The screen's launches of a discover into ``outdir`` are what its
+    recorded ``screen_route`` says: one where the route was the device's,
+    none where it was the host's.  Returns the route."""
+    counters = json.loads((pathlib.Path(outdir) / "metrics.discover.json")
+                          .read_text())["counters"]
+    route = counters.get("screen_route")
+    check(route is not None, f"{label}: no screen_route recorded")
+    want = int(route["choice"] == "device")
+    check(launches == want, f"{label}: {launches} screen launches, "
+                            f"screen_route {route}")
+    check(("split_dp_impl" in counters) == bool(want),
+          f"{label}: split_dp_impl {counters.get('split_dp_impl')!r} with "
+          f"screen_route {route}")
+    return route
 
 
 def check_no_reference_modules():
@@ -416,7 +465,8 @@ def phase_end_to_end(card, work, dataset):
 
     split_dp_cuda.reset_launches()
     t0 = time.time()
-    discover_fusions(outdir=str(work / "port"), device="cuda", **kw)
+    with environ(DEFUSE_DEVICE_SCREEN="force"):
+        discover_fusions(outdir=str(work / "port"), device="cuda", **kw)
     t_port = time.time() - t0
     launches = dict(split_dp_cuda.LAUNCHES)
 
@@ -435,8 +485,9 @@ def phase_end_to_end(card, work, dataset):
           "no fusion sequences produced")
     stages = " ".join(f"{s['stage'].removeprefix('discover:')}="
                       f"{s['seconds']}" for s in metrics["stages"])
-    say(card, f"discover: port {t_port:.3f} s ({n_pairs / t_port:.0f} "
-              f"pairs/s), host-only run (no screen) {t_host:.3f} s; "
+    say(card, f"discover: port, screen forced, {t_port:.3f} s "
+              f"({n_pairs / t_port:.0f} pairs/s), host-only run (no screen) "
+              f"{t_host:.3f} s; "
               f"{len(ARTIFACTS)} artifacts byte-identical")
     say(card, f"discover stages (s): {stages}")
     say(card, f"screen: {int(counters['screen_candidates'])} candidates, "
@@ -628,8 +679,9 @@ def frontend_bytes(res):
 def phase_frontend(card, work, dataset):
     import os
 
+    from defuse_tpu_torch.align import frontend
     from defuse_tpu_torch.align.frontend import align_reads
-    from defuse_tpu_torch.ops import verify_cuda
+    from defuse_tpu_torch.ops import verify_batch, verify_cuda
     from defuse_tpu_torch.utils.synth import frontend_config
 
     ds, paths, n_pairs = dataset
@@ -642,16 +694,28 @@ def phase_frontend(card, work, dataset):
     native = align_reads(config, str(work / "fe_native"), *fq, device="cuda")
     t_native = time.time() - t0
 
+    calls = []  # the verifier's operands, call by call, for phase 14
+    verify = verify_batch.DeviceVerifier.__call__
+
+    def recorded(self, *ops):
+        calls.append(ops)
+        return verify(self, *ops)
+
     verify_cuda.reset_launches()
-    os.environ["DEFUSE_DEVICE_VERIFY"] = "force"
+    verify_batch.DeviceVerifier.__call__ = recorded
     try:
-        t0 = time.time()
-        forced = align_reads(config, str(work / "fe_device"), *fq,
-                             device="cuda")
-        t_device = time.time() - t0
+        with environ(DEFUSE_DEVICE_VERIFY="force"):
+            t0 = time.time()
+            forced = align_reads(config, str(work / "fe_device"), *fq,
+                                 device="cuda")
+            t_device = time.time() - t0
     finally:
-        del os.environ["DEFUSE_DEVICE_VERIFY"]
+        verify_batch.DeviceVerifier.__call__ = verify
     launches = dict(verify_cuda.LAUNCHES)
+    check(frontend.VERIFY_CALLS == {"device": len(calls), "host": 0}
+          and launches["verify_packed3"] == len(calls),
+          f"frontend: verifier calls {frontend.VERIFY_CALLS}, "
+          f"{len(calls)} recorded, launches {launches}")
 
     a, b = frontend_bytes(native), frontend_bytes(forced)
     for key in FRONTEND_ARTIFACTS:
@@ -669,7 +733,9 @@ def phase_frontend(card, work, dataset):
               f"(improper {len(a['improper'])} B, spanning "
               f"{len(a['spanning'])} B); launches {launches}: one for each "
               "call of the verifier that had candidates")
-    return launches
+    say(card, "frontend verifier calls (candidates, reads, L): " + ", ".join(
+        f"({len(c[1])}, {c[2].shape[0]}, {c[2].shape[1]})" for c in calls))
+    return launches, calls
 
 
 # --- phase 8 ----------------------------------------------------------------
@@ -842,14 +908,23 @@ def raw_fastqs(work):
 class StageClock:
     """Wall seconds of the stages that write no metrics of their own: the
     frontend (``align_reads``) and the Runner's stages (read stats, calccov),
-    timed from outside while a ``run`` goes through the command line."""
+    timed from outside while a ``run`` goes through the command line; and
+    the keyword arguments of its ``discover_fusions`` call
+    (``discover_kw``)."""
 
     def __enter__(self):
         from defuse_tpu_torch.align import frontend
         from defuse_tpu_torch.pipeline.runner import Runner
+        from defuse_tpu_torch.pipeline import run as run_module
         self.seconds = {}
-        self._saved = (frontend.align_reads, Runner.run)
-        align_reads, run = self._saved
+        self.discover_kw = None
+        self._saved = (frontend.align_reads, Runner.run,
+                       run_module.discover_fusions)
+        align_reads, run, discover = self._saved
+
+        def kept_discover(**kw):
+            self.discover_kw = dict(kw)
+            return discover(**kw)
 
         def timed_align(*args, **kw):
             t0 = time.time()
@@ -866,12 +941,15 @@ class StageClock:
                 self.seconds[name] = time.time() - t0
 
         frontend.align_reads, Runner.run = timed_align, timed_run
+        run_module.discover_fusions = kept_discover
         return self
 
     def __exit__(self, *exc):
         from defuse_tpu_torch.align import frontend
+        from defuse_tpu_torch.pipeline import run as run_module
         from defuse_tpu_torch.pipeline.runner import Runner
-        frontend.align_reads, Runner.run = self._saved
+        (frontend.align_reads, Runner.run,
+         run_module.discover_fusions) = self._saved
 
     def stages(self, out):
         """This clock's stages and those of the run's ``metrics.json``."""
@@ -917,9 +995,10 @@ def phase_run(card, work, dataset, device):
         check(len(a) > 0, f"run: {name} is empty")
     counters = json.loads((work / "run_card" / "metrics.discover.json")
                           .read_text())["counters"]
-    check(counters.get("split_dp_impl") == IMPL[device],
+    route = screen_launches_implied(work / "run_card",
+                                    launches["split_dp_screen"], "run")
+    check(counters.get("split_dp_impl", IMPL[device]) == IMPL[device],
           f"run: split_dp_impl is {counters.get('split_dp_impl')!r}")
-    check(launches["split_dp_screen"] >= 1, "run: screen never launched")
     rows = [r.split("\t") for r in (work / "run_card" /
             "results.classify.tsv").read_text().splitlines()]
     g1, g2 = rows[0].index("gene1"), rows[0].index("gene2")
@@ -935,14 +1014,14 @@ def phase_run(card, work, dataset, device):
               f"s; create-ref {t_ref:.3f} s; {len(RUN_ARTIFACTS)} artifacts "
               f"byte-identical; {len(planted)}/{len(planted)} planted gene "
               f"pairs among {len(rows) - 1} classified rows, {n_filtered} "
-              f"past the probability threshold; launches {launches}; screen "
-              f"{int(counters['screen_candidates'])} candidates, "
-              f"{int(counters['screen_survivors'])} survivors")
+              f"past the probability threshold; launches {launches}; "
+              f"screen_route {route}; screen survivors "
+              f"{counters.get('screen_survivors', 'none: not screened')}")
     say(card, "run stages on the card (s): "
               f"{card_clock.stages(work / 'run_card')}")
     say(card, "run stages --no-device (s): "
               f"{host_clock.stages(work / 'run_host')}")
-    return launches
+    return launches, card_clock.discover_kw
 
 
 # --- phase 10 ---------------------------------------------------------------
@@ -1155,18 +1234,24 @@ def phase_cohort(card, work, dataset, device):
     fusions = (work / "cohort" / "cohort_fusions.tsv").read_text() \
         .splitlines()
     check(len(fusions) > 1, "cohort_fusions.tsv is empty")
+    routes = {}
     for lib in libs:
         counters = json.loads((work / "cohort" / lib /
                                "metrics.discover.json").read_text())
-        check(counters["counters"].get("split_dp_impl") == IMPL[device],
-              f"cohort {lib}: split_dp_impl")
+        routes[lib] = counters["counters"].get("screen_route")
+        impl = counters["counters"].get("split_dp_impl")
+        check(routes[lib] is not None and impl == (
+            IMPL[device] if routes[lib]["choice"] == "device" else None),
+              f"cohort {lib}: split_dp_impl {impl!r}, screen_route "
+              f"{routes[lib]}")
     recurrent = len((work / "cohort" / "cohort_recurrent.tsv").read_text()
                     .splitlines()) - 1
     say(card, f"cohort of {len(libs)} libraries ({n_pairs // 2} pairs each, "
               f"2 workers sharing the card): {seconds:.3f} s; both ok "
               f"(n_fusions {[r[2] for r in summary]}, seconds "
               f"{[r[3] for r in summary]}); {len(fusions) - 1} pooled "
-              f"fusions, {recurrent} gene pairs in cohort_recurrent.tsv")
+              f"fusions, {recurrent} gene pairs in cohort_recurrent.tsv; "
+              f"screen routes {routes}")
 
 
 # --- phase 12 ---------------------------------------------------------------
@@ -1481,6 +1566,8 @@ def phase_dist_run(card, work, dataset, dev):
                  use_device=True, device=dev, **aligned)
     t_one = time.time() - t0
     one_screens = split_dp_cuda.LAUNCHES["split_dp_screen"]
+    if dev.type == "cuda":
+        screen_launches_implied(one, one_screens, "dist run, one process")
     two = work / "dist_two"
     meta.update(fastq1=aligned["fastq1"], fastq2=aligned["fastq2"],
                 shard_prefixes=split_fastq(
@@ -1498,12 +1585,12 @@ def phase_dist_run(card, work, dataset, dev):
         check(len(a) > 0, f"dist run: {name} is empty")
     counters = json.loads((two / "out" / "metrics.discover.json")
                           .read_text())["counters"]
-    check(counters.get("split_dp_impl") == IMPL[dev.type] and
-          counters.get("em_impl") == "native",
+    check(counters.get("split_dp_impl", IMPL[dev.type]) == IMPL[dev.type]
+          and counters.get("em_impl") == "native",
           f"dist run: counters {counters}")
     screens = recs[0]["launches"]["split_dp_screen"]
-    check(screens >= 1 or dev.type == "cpu",
-          "dist run: the screen never launched on rank 0")
+    if dev.type == "cuda":
+        screen_launches_implied(two / "out", screens, "dist run, rank 0")
     check(all(r["backend"] == "gloo" and r["world_size"] == 2
               for r in recs), f"dist run: {recs}")
     say(card, f"run on 2 processes ({n_pairs} pairs dealt into 2 shards): "
@@ -1541,6 +1628,312 @@ def phase_dryrun(card, device):
               f"rowmax_kernel launches by rank {rowmax}")
     return {"seconds": rec["seconds"], "rowmax_launches": sum(rowmax),
             "ranks": ranks}
+
+
+# --- phase 14 ---------------------------------------------------------------
+
+ROUTE_REPS = 5      # runs of each arm of an A/B, the arms alternated
+COPY_REPS, RTT_REPS = 20, 200
+
+
+def median_spread(xs):
+    """(median, max - min) of a list of seconds."""
+    return float(np.median(xs)), float(max(xs) - min(xs))
+
+
+def link_rates(dev, sizes):
+    """The card's host link: the host-to-device rate of pageable numpy
+    memory at each of ``sizes`` ({label: bytes}; the median of COPY_REPS
+    copies), and the round trip of an empty launch and a 4-byte copy back
+    (the median of RTT_REPS)."""
+    by_size = {}
+    for label, n in sizes.items():
+        a = np.ones(int(n), np.uint8)
+        seconds = []
+        for _ in range(COPY_REPS + 1):  # the first warms the allocator
+            t0 = time.perf_counter()
+            torch.from_numpy(a).to(dev)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        by_size[label] = {"bytes": int(n),
+                          "MBps": n / float(np.median(seconds[1:])) / 1e6}
+    x = torch.zeros(1, dtype=torch.int32, device=dev)
+    seconds = []
+    for _ in range(RTT_REPS + 1):
+        t0 = time.perf_counter()
+        x.add_(1)
+        x.item()
+        seconds.append(time.perf_counter() - t0)
+    return {"bw_MBps": min(s["MBps"] for s in by_size.values()),
+            "rtt_ms": float(np.median(seconds[1:])) * 1e3,
+            "by_size": by_size}
+
+
+def discover_ab(kw, base, reference=None):
+    """Discover with ``DEFUSE_DEVICE_SCREEN=force`` and ``off``, alternated
+    ROUTE_REPS times each, into fresh directories under ``base``; every
+    run's artifacts equal to those in ``reference`` (by default the first
+    run's).  Returns each arm's runs: wall, ``realign:emit``, the
+    ``screen:*`` stages and the host part of them (read matrix, padding,
+    operands), the counters."""
+    import shutil
+    from defuse_tpu_torch.pipeline.discover import discover_fusions
+    arms = {"force": [], "off": []}
+    for i in range(ROUTE_REPS):
+        for mode, runs in arms.items():
+            out = base / f"{mode}{i}"
+            with environ(DEFUSE_DEVICE_SCREEN=mode):
+                t0 = time.perf_counter()
+                discover_fusions(**{**kw, "outdir": str(out)})
+                wall = time.perf_counter() - t0
+            reference = reference or out
+            for name in ARTIFACTS:
+                check((out / name).read_bytes() ==
+                      (reference / name).read_bytes(),
+                      f"screen {mode}: {name} differs from {reference.name}")
+            metrics = json.loads((out / "metrics.discover.json").read_text())
+            stages = {s["stage"].removeprefix("discover:"): s["seconds"]
+                      for s in metrics["stages"]}
+            runs.append({
+                "wall": wall, "emit": stages["realign:emit"],
+                "screen": sum(v for k, v in stages.items()
+                              if k.startswith("screen:")),
+                "prep": sum(stages.get(f"screen:{k}", 0.0) for k in
+                            ("read_matrix", "pad", "upload")),
+                "counters": metrics["counters"]})
+            if out != reference:
+                shutil.rmtree(out)
+    return arms
+
+
+def verify_ab(dev, calls):
+    """The verifier at the frontend's recorded calls, on the device
+    (``force``) and on the host oracle (``off``), alternated ROUTE_REPS
+    times each; both routes' counts equal at every in-bounds placement
+    (past the reference's end they differ: ROADMAP C4).  Then each call
+    once under ``auto``: the route it takes is the cost model's.  Returns
+    one record a call."""
+    from defuse_tpu_torch.ops.verify_batch import (DeviceVerifier,
+                                                   verify_cost_model)
+    verifier = DeviceVerifier(dev)
+    recs = []
+    for ops in calls:
+        codes, cand_pos, reads, ridx, lens = ops
+        with environ(DEFUSE_DEVICE_VERIFY="force"):
+            verifier(*ops)  # the plane resident, the kernel loaded
+        seconds = {"device": [], "host": []}
+        counts = {}
+        for _ in range(ROUTE_REPS):
+            for route, mode in (("device", "force"), ("host", "off")):
+                with environ(DEFUSE_DEVICE_VERIFY=mode):
+                    t0 = time.perf_counter()
+                    counts[route] = verifier(*ops)
+                    seconds[route].append(time.perf_counter() - t0)
+        inside = (cand_pos >= 0) & (cand_pos + lens[ridx] <= len(codes))
+        check(np.array_equal(counts["device"][inside],
+                             counts["host"][inside]),
+              "verify: the device and host routes' counts differ in bounds")
+        t_dev, t_host = verify_cost_model(len(cand_pos), *reads.shape)
+        model = "device" if t_dev < t_host else "host"
+        before = verifier.calls_device
+        verifier(*ops)
+        taken = "device" if verifier.calls_device > before else "host"
+        check(taken == model, f"verify auto took {taken}, the model {model}")
+        recs.append({"candidates": len(cand_pos), "reads": reads.shape[0],
+                     "L": reads.shape[1], "model": model,
+                     "t_dev_s": t_dev, "t_host_s": t_host, **seconds})
+    return recs
+
+
+def judged(card, label, model, seconds, failures):
+    """The route the model chose against the route measured faster
+    (medians of ``seconds``, {route: [s, ...]}).  A model that picks the
+    slower route by more than the larger arm's spread is a failure; within
+    it, a near tie."""
+    med = {r: median_spread(s) for r, s in seconds.items()}
+    faster = min(med, key=lambda r: med[r][0])
+    gap = abs(med["device"][0] - med["host"][0])
+    spread = max(m[1] for m in med.values())
+    verdict = "agrees" if model == faster else \
+        "near tie" if gap <= spread else "WRONG"
+    if verdict == "WRONG":
+        failures.append(label)
+    say(card, f"route {label}: model {model}, measured faster {faster} "
+              f"(device {med['device'][0]:.6f} s spread "
+              f"{med['device'][1]:.6f}, host {med['host'][0]:.6f} s spread "
+              f"{med['host'][1]:.6f}): {verdict}")
+    return {"model": model, "faster": faster, "verdict": verdict,
+            "device_s": med["device"], "host_s": med["host"]}
+
+
+def phase_routing(card, dev, work, dataset, run_kw, calls, em_rec):
+    """Phase 14: the screen and verify A/B, the link, the rates of the cost
+    models fitted from them and from phase 12, the routing table, and each
+    decision against the route measured faster.  Fails, after printing
+    everything, where a model picks the slower route by more than the
+    measured spread."""
+    from defuse_tpu_torch.align.batch_realign import _pad_len
+    from defuse_tpu_torch.cluster import native
+    from defuse_tpu_torch.cluster.discordant import collect_bin_pair_tasks
+    from defuse_tpu_torch.cluster.matepair_em import EMParams
+    from defuse_tpu_torch.core import devices
+    from defuse_tpu_torch.io.sam import iter_compact, load_alignments
+    from defuse_tpu_torch.ops import split_dp_cuda, verify_batch
+    from defuse_tpu_torch.pipeline import routing
+    from defuse_tpu_torch.pipeline.discover import discover_fusions
+    from defuse_tpu_torch.utils import synth
+
+    _ds, paths, _n_pairs = dataset
+    link = devices.link_profile()
+    check("override" not in link, f"link overridden: {link}")
+    ncpu = native._default_threads()
+
+    # (b) the screen, forced and off, at the discover and the run shapes
+    shapes = {"discover": (discover_kwargs(paths) | {"device": dev},
+                           work / "host"),
+              "run": (run_kw, None)}
+    screen = {}
+    for shape, (kw, reference) in shapes.items():
+        arms = discover_ab(kw, work / f"ab_{shape}", reference)
+        counters = arms["force"][0]["counters"]
+        B = int(counters["screen_candidates"])
+        L = _pad_len(kw["max_read_length"], 64)
+        rec = {"candidates": B, "L": L,
+               "survivors": int(counters["screen_survivors"]),
+               "model": routing.screen_decision(B, L, link, ncpu),
+               "walls": {"device": [r["wall"] for r in arms["force"]],
+                         "host": [r["wall"] for r in arms["off"]]}}
+        for mode, runs in arms.items():
+            for key in ("wall", "emit", "screen", "prep"):
+                rec[f"{mode}_{key}"] = median_spread([r[key] for r in runs])
+        route = counters["screen_route"]
+        check(route["t_dev_s"] == rec["model"]["t_dev_s"],
+              f"screen {shape}: recorded {route}, model {rec['model']}")
+        screen[shape] = rec
+        say(card, f"screen A/B at the {shape} shape ({B} candidates, "
+                  f"{rec['survivors']} survivors; (median, spread) over "
+                  f"{ROUTE_REPS} runs each, s): wall forced "
+                  f"{rec['force_wall']}, off {rec['off_wall']}; realign:emit "
+                  f"forced {rec['force_emit']}, off {rec['off_emit']}; "
+                  f"screen:* {rec['force_screen']}, its host part "
+                  f"{rec['force_prep']}; artifacts byte-identical")
+    # the live rule once at the discover shape, with the line it prints
+    split_dp_cuda.reset_launches()
+    with environ(DEFUSE_STAGE_TIMING="1"):
+        discover_fusions(**{**shapes["discover"][0],
+                            "outdir": str(work / "auto_discover")})
+    auto_route = screen_launches_implied(
+        work / "auto_discover", split_dp_cuda.LAUNCHES["split_dp_screen"],
+        "discover under auto")
+
+    # (c) the verify at the frontend's calls
+    verify = verify_ab(dev, calls)
+    for r in verify:
+        say(card, f"verify A/B at ({r['candidates']} candidates, "
+                  f"{r['reads']} reads, L {r['L']}): device "
+                  f"{median_spread(r['device'])}, host oracle "
+                  f"{median_spread(r['host'])} s (median, spread); model "
+                  f"{r['model']} (est dev {r['t_dev_s']:.6f} s, host "
+                  f"{r['t_host_s']:.6f} s), taken under auto; counts equal "
+                  "in bounds")
+
+    # (a) the link, at the screen's and the largest verify call's operands
+    disc = screen["discover"]
+    big = max(verify, key=lambda r: r["candidates"])
+    measured = link_rates(dev, {
+        "screen": 2 * disc["candidates"] * disc["L"],
+        "verify": 0.4 * big["reads"] * big["L"] + 8 * big["candidates"]})
+    bw = measured["bw_MBps"] * 1e6
+    rtt = measured["rtt_ms"] / 1e3
+
+    # the rates, fitted as the cost models count them
+    B, L = disc["candidates"], disc["L"]
+    prep_share = disc["force_prep"][0] / disc["force_screen"][0]
+    dev_side = disc["force_screen"][0] if prep_share > 0.1 else \
+        disc["force_screen"][0] - disc["force_prep"][0]
+    dev_rest = dev_side - 3 * rtt - 2 * B * L / bw
+    removed = B - disc["survivors"]
+    saved = disc["off_emit"][0] - disc["force_emit"][0]
+    verify_rest = sum(max(float(np.median(r["device"])) - 2 * rtt - (
+        0.4 * r["reads"] * r["L"] + 8 * r["candidates"]) / bw, 1e-9)
+        for r in verify)
+    params = EMParams(synth.MEAN, synth.STD, synth.PREC, synth.MINCL)
+    instances = [(t.x, t.y, t.u) for t in collect_bin_pair_tasks(
+        load_alignments(iter_compact(str(paths["spanning"]))), params)]
+    native_s = []
+    for _ in range(ROUTE_REPS):
+        t0 = time.perf_counter()
+        native.em_cluster_batch(instances, params)
+        native_s.append(time.perf_counter() - t0)
+    rows, stats = em_rec["rows"], em_rec["float64"]["stats"]
+    fitted = {
+        "LINK_BW_MBPS": measured["bw_MBps"],
+        "LINK_RTT_MS": measured["rtt_ms"],
+        "SCREEN_DEVICE_READS_S": B / dev_rest if dev_rest > 0 else None,
+        "SCREEN_HOST_READS_S_PER_CORE":
+            removed / (saved * ncpu) if saved > 0 else None,
+        "DEVICE_LANES_S":
+            sum(r["candidates"] * r["L"] for r in verify) / verify_rest,
+        "HOST_CANDIDATES_S": sum(r["candidates"] for r in verify)
+        / sum(float(np.median(r["host"])) for r in verify),
+        "EM_NATIVE_ROWS_S": rows / float(np.median(native_s)),
+        "EM_DEVICE_COMPUTE_ROWS_S":
+            rows / (stats["wall_s"] - stats["t_upload"]),
+        "EM_UPLOAD_BYTES_PER_ROW": stats["up_MB"] * 1e6 / rows,
+        "EM_SLAB_ROWS": rows / stats["slabs"]}
+    in_use = {"LINK_BW_MBPS": devices.LINK_BW_MBPS,
+              "LINK_RTT_MS": devices.LINK_RTT_MS,
+              "DEVICE_LANES_S": verify_batch.DEVICE_LANES_S,
+              "HOST_CANDIDATES_S": verify_batch.HOST_CANDIDATES_S} | {
+        k: getattr(routing, k) for k in fitted if hasattr(routing, k)}
+    say(card, f"link measured: {measured['bw_MBps']:.1f} MB/s, the smaller "
+              f"of {measured['by_size']}; round trip "
+              f"{measured['rtt_ms']:.4f} ms; native threads {ncpu}")
+    say(card, f"screen's device side at the discover shape: screen:* "
+              f"{disc['force_screen'][0]:.6f} s, its host part "
+              f"{100 * prep_share:.1f}%, so fitted to "
+              + ("the whole screen:* time" if prep_share > 0.1 else
+                 "the kernel and its copy back") +
+              f"; realign:emit saved {saved:.6f} s for {removed} candidates "
+              f"removed; native EM {median_spread(native_s)} s (median, "
+              f"spread), batched EM float64 {em_rec['float64']['device_s']:.3f}"
+              f" s, upload {stats['t_upload']} s, {stats['up_MB']} MB, "
+              f"{stats['slabs']} slabs")
+    for name, value in in_use.items():
+        say(card, f"constant {name}: in use {value}, measured in this run "
+                  f"{fitted[name]}")
+    table = routing.routing_table(
+        verify_candidates=big["candidates"], verify_reads=big["reads"],
+        verify_read_len=big["L"], em_rows=rows, ncpu=ncpu)
+    for name, point in table.items():
+        for stage in ("screen", "verify", "em"):
+            say(card, f"routing table at the bench shapes, link {name} "
+                      f"{point['link']}: {stage} {point[stage]}")
+
+    # (d) each decision against the route measured faster
+    failures = []
+    checks = {f"screen {shape}": judged(
+        card, f"screen at the {shape} shape ({rec['candidates']} "
+              "candidates; discover wall)", rec["model"]["choice"],
+        rec["walls"], failures) for shape, rec in screen.items()}
+    for r in verify:
+        checks[f"verify {r['candidates']}"] = judged(
+            card, f"verify at {r['candidates']} candidates", r["model"],
+            {"device": r["device"], "host": r["host"]}, failures)
+    em_model = routing.em_decision(rows, link)
+    checks["em"] = judged(
+        card, f"EM at {rows} rows (native against the batched EM, float64)",
+        em_model["choice"], {"device": [em_rec["float64"]["device_s"]],
+                             "host": native_s}, failures)
+    check(not failures, f"routing: the model picks the slower route by more "
+                        f"than the spread at {failures}")
+    return {"link": measured, "ncpu": ncpu, "in_use": in_use,
+            "measured": fitted, "prep_share": prep_share,
+            "emit_saved_s": saved, "removed": removed,
+            "screen": {k: {x: v for x, v in r.items() if x != "walls"}
+                       for k, r in screen.items()},
+            "auto_route": auto_route, "verify": verify, "table": table,
+            "em_native_s": native_s, "checks": checks}
 
 
 def bound(work_bytes, ops_ms):
@@ -1603,9 +1996,9 @@ def main() -> int:
         # --- phase 6: verify kernel == plain -----------------------------
         err_verify, verify_shapes = phase_verify(card, dev, rng)
         # --- phase 7: frontend -------------------------------------------
-        verify_launches = phase_frontend(card, work, dataset)
+        verify_launches, verify_calls = phase_frontend(card, work, dataset)
         # --- phase 9: the whole run --------------------------------------
-        run_launches = phase_run(card, work, dataset, "cuda")
+        run_launches, run_kw = phase_run(card, work, dataset, "cuda")
         # --- phase 10: discover without the native library ---------------
         no_native = phase_no_native(card, work, "cuda")
         # --- phase 11: cohort --------------------------------------------
@@ -1616,6 +2009,10 @@ def main() -> int:
         entry_rec = phase_entry(card, dev)
         dist_rec = phase_dist_run(card, work, dataset, dev)
         dryrun_rec = phase_dryrun(card, "cuda")
+        # --- phase 14: routing -------------------------------------------
+        routing_rec = phase_routing(card, dev, work, dataset, run_kw,
+                                    verify_calls, em_rec)
+        del verify_calls
     # --- phase 8: probe and roofline -------------------------------------
     err_probe, probe_ms, probe_plain_ms, probe_work = \
         phase_probe_equals_plain(card, dev)
@@ -1703,7 +2100,8 @@ def main() -> int:
                   f"({100 * k['bound_ms'] / k['ms']:.1f}%)" for k in kernels))
     print(json.dumps({"em": em_rec,
                       "no_native_device_em": no_native["device_em"],
-                      "dist_run": dist_rec, "dryrun": dryrun_rec}),
+                      "dist_run": dist_rec, "dryrun": dryrun_rec,
+                      "routing": routing_rec}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

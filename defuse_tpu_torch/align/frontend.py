@@ -24,7 +24,7 @@ ingest and ``align_job`` with its native C++ driver and its Python path
 are the same host code.  ``align_reads`` differs in its verify wiring: the
 one device stage, candidate verification, runs as the CUDA kernel of
 ``ops/verify_cuda.py`` through ``ops.verify_batch.DeviceVerifier`` when it
-is engaged.
+is engaged, on the calls its cost model sends to the card.
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ from ..stats.readstats import ReadStats
 from .seedindex import SeedIndex
 
 UNMAPPABLE_BIN = 200000
+
+# the last align_reads call's verifier calls by route ({"device", "host"};
+# zeros when no verifier was engaged), read by chip_smoke.py and the tests
+VERIFY_CALLS: dict = {}
 
 
 class SingleAlignment(typing.NamedTuple):
@@ -673,8 +677,10 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
     Routing is the reference's: with ``DEFUSE_DEVICE_VERIFY=auto`` (the
     default) the native fused C++ seed+verify runs when the native library
     is present, and ``DeviceVerifier(device)`` verifies the candidates of
-    the Python seed path when it is absent; ``force`` verifies on
-    ``device`` regardless; ``off`` or ``use_device=False`` never does.
+    the Python seed path when it is absent, each call on the route that
+    its cost model picks; ``force`` verifies every call on ``device``
+    regardless; ``off`` or ``use_device=False`` never does.  The calls of
+    each route land in ``VERIFY_CALLS``.
     ``device="cuda"`` without CUDA raises.  ``frag_base`` offsets fragment
     ids globally when this process owns one shard of a multi-process run.
     """
@@ -764,8 +770,8 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
             ig_genes = {line.strip() for line in fh if line.strip()}
 
     # the one change from defuse_tpu: the port's verifier, with no device
-    # probe and no cost model; with the native library present, auto mode
-    # keeps the fused C++ seed+verify
+    # probe (its cost model routes each call); with the native library
+    # present, auto mode keeps the fused C++ seed+verify
     verify_fn = None
     mode = os.environ.get("DEFUSE_DEVICE_VERIFY", "auto")
     if dev is not None and mode != "off" \
@@ -811,6 +817,9 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
     else:
         res = run_shard(reads1, reads2, out / "aligned",
                         frag_base=frag_base)
+    VERIFY_CALLS.update(
+        device=verify_fn.calls_device if verify_fn else 0,
+        host=verify_fn.calls_host if verify_fn else 0)
     return {
         "spanning": res["spanning"], "improper": res["improper"],
         "fastq1": str(out / "reads" / "reads.1.fastq"),

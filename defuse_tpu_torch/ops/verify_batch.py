@@ -12,16 +12,30 @@ the plain version of the CUDA kernel in ``csrc/verify.cu``
 (``ops/verify_cuda.py``); the CPU tests run it, and ``chip_smoke.py``
 holds the kernel against it on the card.
 
-Not carried over from the JAX module: its TPU-era cost model
-(``verify_cost_model``, the link profile and the v5e lane rate).  When
-the port's verifier is engaged it verifies on its device; the caller
-passes no verifier at all for ``DEFUSE_DEVICE_VERIFY=off``.
+Each call of the verifier is routed as ``defuse_tpu``'s is: by
+``verify_cost_model`` (round trips and upload over the card's link, lanes
+over the kernel's rate, against candidates over the numpy oracle's rate)
+with the rates measured on the card, not the JAX module's v5e figures.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+# Rates of one verifier call (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+# phase 14, over the 16 calls the frontend makes on the bench dataset, 15 to
+# 55,537 candidates of 50 bp against 50,052 or 92,800 reads): candidate-lanes
+# (candidates x read length) a second of the device route beyond its link
+# terms (``convert.verify_operands``, which packs every read of the call,
+# the kernel, the counts' copy back), and candidates a second of the numpy
+# oracle on one host core.  The device route's time there follows the reads
+# packed (0.45-0.54 us a read), not the lanes, so this rate holds near the
+# frontend's ratio of candidates to reads.
+DEVICE_LANES_S = 24.09e6
+HOST_CANDIDATES_S = 1.726e6
 
 BASES_PER_WORD = 10
 GROUP_LOW_BITS = 0x09249249  # bit 0 of each 3-bit base slot
@@ -97,21 +111,61 @@ def verify_packed3_ref(ref3, word10, lane10, reads3, read_idx, read_lens, L):
     return bits.sum(dim=(1, 2)).to(torch.int32)
 
 
+def verify_cost_model(n_candidates: int, n_reads: int, L: int,
+                      link: dict | None = None) -> tuple[float, float]:
+    """(t_device, t_host) estimates for one verify call, in seconds: two
+    round trips, the packed reads (0.4 B a base) and the candidates (8 B
+    each) over the link, and the candidate-lanes at ``DEVICE_LANES_S``,
+    against the candidates at ``HOST_CANDIDATES_S``.  ``link`` defaults to
+    ``core.devices.link_profile()``."""
+    if link is None:
+        from ..core.devices import link_profile
+        link = link_profile()
+    bw = link["bw_MBps"] * 1e6
+    rtt = link["rtt_ms"] / 1e3
+    up_bytes = 0.4 * n_reads * L + 8 * n_candidates
+    t_dev = 2 * rtt + up_bytes / bw + n_candidates * L / DEVICE_LANES_S
+    t_host = n_candidates / HOST_CANDIDATES_S
+    return t_dev, t_host
+
+
+def host_counts(codes, cand_pos, reads_codes, read_idx, read_lens):
+    """Mismatch counts of the candidate placements by the numpy oracle
+    (``SeedIndex.verify``'s own), the verifier's host route."""
+    L = reads_codes.shape[1]
+    gather_idx = np.clip(
+        cand_pos[:, None] + np.arange(L)[None, :], 0,
+        len(codes) - 1)
+    windows = codes[gather_idx]
+    lens = read_lens[read_idx]
+    diff = (windows != reads_codes[read_idx]) \
+        & (np.arange(L)[None, :] < lens[:, None])
+    return diff.sum(axis=1)
+
+
 class DeviceVerifier:
     """``verify_fn`` adapter for ``SeedIndex.verify`` on ``device``.
 
-    Keeps each reference's packed plane resident on the device, keyed by
-    the identity of the host code array (held beside it, so a collected
+    Each call is routed as ``defuse_tpu``'s verifier routes it:
+    ``DEFUSE_DEVICE_VERIFY=force`` verifies on ``device``, ``off`` on the
+    host, and ``auto`` (the default) where ``verify_cost_model`` with
+    ``link_profile()`` puts the lower estimate.  ``calls_device`` and
+    ``calls_host`` count the calls each route took.
+
+    The device route keeps each reference's packed plane resident, keyed
+    by the identity of the host code array (held beside it, so a collected
     array's reused address cannot alias), packs the reads once per call,
     and verifies all candidates of a call in one launch: the kernel keeps
-    nothing per candidate but its operands and its count.
-    Returns the mismatch counts as int64 numpy.  A CUDA device launches the
-    kernel of ``csrc/verify.cu``; ``device="cpu"`` runs the plain version.
+    nothing per candidate but its operands and its count.  A CUDA device
+    launches the kernel of ``csrc/verify.cu``; ``device="cpu"`` runs the
+    plain version.  Returns the mismatch counts as int64 numpy.
     """
 
     def __init__(self, device):
         self.device = torch.device(device)
         self._resident: dict[int, tuple] = {}
+        self.calls_device = 0
+        self.calls_host = 0
 
     def _plane(self, codes):
         from ..convert import verify_plane  # convert imports this module
@@ -122,8 +176,17 @@ class DeviceVerifier:
         return entry[1]
 
     def __call__(self, codes, cand_pos, reads_codes, read_idx, read_lens):
+        mode = os.environ.get("DEFUSE_DEVICE_VERIFY", "auto")
+        if mode != "force":
+            t_dev, t_host = verify_cost_model(
+                len(cand_pos), reads_codes.shape[0], reads_codes.shape[1])
+            if mode == "off" or t_dev >= t_host:
+                self.calls_host += 1
+                return host_counts(codes, cand_pos, reads_codes, read_idx,
+                                   read_lens)
         from ..convert import verify_operands
         from .verify_cuda import verify_packed3  # it imports this module
+        self.calls_device += 1
         ops = verify_operands(codes, cand_pos, reads_codes, read_idx,
                               read_lens, self.device, ref3=self._plane(codes))
         out = verify_packed3(*ops, reads_codes.shape[1])

@@ -18,6 +18,15 @@ and byte-identical artifacts, on both of its routes:
 The device stages run as CUDA kernels (``device="cuda"``) or, only when
 ``device="cpu"`` is passed or ``use_device`` is false, as their plain
 PyTorch versions on CPU tensors.
+
+Whether the screen runs is the reference's decision:
+``DEFUSE_DEVICE_SCREEN=force`` screens, ``off`` never does, and ``auto``
+(the default) screens when ``pipeline.routing.screen_decision`` at the
+card's link (``core.devices.link_profile``) puts the device side below the
+native realign of the candidates.  The reference's wait for its device
+probe, and the budget that bounds that wait, are not carried over: the port
+has no probe, and a card that is absent raises at once.  The decision is
+recorded as ``screen_route`` in ``metrics.discover.json``.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from ..cluster.discordant import cluster_alignments, write_clusters
 from ..cluster.matepair_em import EMParams
 from ..cluster.setcover import run_setcover_file
 from ..convert import screen_min_scores, screen_operands
-from ..core.devices import require_cuda
+from ..core.devices import link_profile, require_cuda
 from ..core.exons import ExonRegions
 from ..io.fasta import FastaStore
 from ..io.sam import iter_compact, iter_sam, load_alignments
@@ -47,6 +56,7 @@ from ..ops.split_dp_cuda import dp_row_maxima_cuda, screen_candidates
 from ..parallel.shard import merge_cluster_parts
 from ..utils import checks
 from ..utils.profiling import Tracer, device_trace
+from . import routing
 from .regions import align_regions_file
 
 
@@ -73,8 +83,9 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     """Run discovery into ``outdir``; returns the artifact paths.
 
     ``use_device`` puts the device stages on ``device``: the split-read
-    screen with the native library (``DEFUSE_DEVICE_SCREEN=off`` disables
-    it), the row maxima and tie columns of the Python realign without it.
+    screen with the native library (where ``DEFUSE_DEVICE_SCREEN`` and the
+    routing decision send it), the row maxima and tie columns of the
+    Python realign without it.
     ``em_mode`` is "auto" (the native EM when the library is built; without
     it the batched EM on ``device`` with ``use_device``, else the oracle),
     "native", "oracle" (the Python EM, exact) or "device" (the batched EM
@@ -202,11 +213,12 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
             print(f"[discover] candidates={driver.n_candidates} "
                   f"clusters={len(cluster_ids)} max_flank={mx}", flush=True)
         survivors = None
-        if os.environ.get("DEFUSE_DEVICE_SCREEN", "auto") == "off":
-            dev = None
         if dev is not None and driver.n_candidates and cluster_ids:
-            survivors = _screen(driver, flank1s, flank2s, max_read_length,
-                                dev, tracer, _mark)
+            route = _screen_route(driver.n_candidates, max_read_length)
+            tracer.counters["screen_route"] = route
+            if route["choice"] == "device":
+                survivors = _screen(driver, flank1s, flank2s,
+                                    max_read_length, dev, tracer, _mark)
         # full realign tail in C++ when possible: emit + sort + breakpoint
         # vote (byte-identical artifacts; falls back to the Python sort/
         # evaluate chain below on failure)
@@ -349,6 +361,29 @@ def _reads_handle(out, fastq1, fastq2, reads_sources=None):
     if handle is None:
         handle = native.load_reads_async(fastq1, fastq2)
     return handle
+
+
+def _screen_route(n_candidates, max_read_length):
+    """The screen's route, ``{"t_dev_s", "t_host_s", "choice", "mode"}``:
+    the estimates of ``routing.screen_decision`` for ``n_candidates`` reads
+    padded from ``max_read_length`` at the card's link on the native
+    library's threads, the mode of ``DEFUSE_DEVICE_SCREEN`` and the route
+    taken (``device`` or ``host``): the estimates' choice under ``auto``,
+    ``device`` under ``force``, ``host`` under ``off``."""
+    mode = os.environ.get("DEFUSE_DEVICE_SCREEN", "auto")
+    link = link_profile()
+    est = routing.screen_decision(n_candidates, _pad_len(max_read_length, 64),
+                                  link, native._default_threads())
+    choice = {"force": "device", "off": "host"}.get(mode, est["choice"])
+    if os.environ.get("DEFUSE_STAGE_TIMING"):
+        if mode == "force":
+            print(f"[discover] screen: device (forced, B={n_candidates})",
+                  flush=True)
+        elif mode != "off":
+            print(f"[discover] screen: {choice} wins (est dev "
+                  f"{est['t_dev_s']:.4f}s vs host {est['t_host_s']:.4f}s, "
+                  f"B={n_candidates}, link {link})", flush=True)
+    return {**est, "choice": choice, "mode": mode}
 
 
 def _screen(driver, flank1s, flank2s, max_read_length, dev, tracer, _mark):

@@ -1,13 +1,18 @@
 """The port's ``discover_fusions`` against ``defuse_tpu``'s: every
 artifact byte-identical to the JAX package's host run and to its run with
 the Pallas screen (interpreted on the CPU), and the port's screen keeps
-exactly the candidate reads the JAX screen keeps on the same inputs."""
+exactly the candidate reads the JAX screen keeps on the same inputs.  Under
+``DEFUSE_DEVICE_SCREEN=auto`` the screen runs where the routing decision at
+the link sends it, with the same artifacts either way."""
+
+import json
 
 import numpy as np
 import pytest
 
 from defuse_tpu.cluster import native
 from defuse_tpu.pipeline.discover import discover_fusions as jax_discover
+from defuse_tpu_torch.ops import split_dp_cuda
 from defuse_tpu_torch.pipeline import discover as port
 
 from synthdata import make_dataset, write_dataset
@@ -39,11 +44,12 @@ def dataset(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port_run(dataset):
-    """The port on the CPU, with the screen's operands and verdict
-    recorded on their way through."""
+    """The port on the CPU with its screen forced, the screen's operands
+    and verdict recorded on their way through."""
     tmp, kw = dataset
     seen = {}
     mp = pytest.MonkeyPatch()
+    mp.setenv("DEFUSE_DEVICE_SCREEN", "force")
     screen_operands, screen_candidates = port.screen_operands, \
         port.screen_candidates
 
@@ -94,11 +100,13 @@ def test_port_survivors_match_jax_screen(port_run):
 
 
 def test_port_metrics_name_the_screen(port_run):
-    import json
     port_dir, seen = port_run
     metrics = json.loads((port_dir / "metrics.discover.json").read_text())
     counters = metrics["counters"]
     assert counters["split_dp_impl"] == "torch"
+    route = counters["screen_route"]
+    assert (route["mode"], route["choice"]) == ("force", "device")
+    assert route["t_dev_s"] > 0 and route["t_host_s"] > 0
     assert counters["em_impl"] == "native"
     assert counters["screen_candidates"] == len(seen["scores"])
     assert counters["screen_survivors"] == int((seen["scores"] > 0).sum())
@@ -115,10 +123,63 @@ def test_port_screen_off_matches(dataset, port_run, monkeypatch):
     for name in ARTIFACTS:
         assert (port_dir / name).read_bytes() == \
             (tmp / "port_off" / name).read_bytes(), name
-    import json
     counters = json.loads((tmp / "port_off" / "metrics.discover.json")
                           .read_text())["counters"]
     assert "split_dp_impl" not in counters
+    assert (counters["screen_route"]["mode"],
+            counters["screen_route"]["choice"]) == ("off", "host")
+
+
+@pytest.fixture(scope="module")
+def jax_host(dataset):
+    """``defuse_tpu``'s host run (no screen) of the dataset."""
+    tmp, kw = dataset
+    jax_discover(outdir=str(tmp / "jax_host"), use_device=False, **kw)
+    return tmp / "jax_host"
+
+
+@pytest.mark.parametrize("link,choice", [
+    ({"DEFUSE_LINK_BW": "1", "DEFUSE_LINK_RTT": "100"}, "host"),
+    ({"DEFUSE_LINK_BW": "1e12", "DEFUSE_LINK_RTT": "0"}, "device")])
+def test_port_auto_screen_follows_the_link(dataset, jax_host, monkeypatch,
+                                           link, choice, capsys):
+    """``auto`` screens where ``routing.screen_decision`` at the overridden
+    link puts the lower estimate: at 1 MB/s and 100 ms the link alone
+    outweighs the native realign, at a free link the screen's rate beats
+    four cores'.  The screen runs (its plain version here, no kernel
+    launched) exactly when the recorded route says so, the printed line
+    is the reference's, and the artifacts are ``defuse_tpu``'s bytes on
+    either route."""
+    tmp, kw = dataset
+    for name, value in link.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("DEFUSE_DEVICE_SCREEN", "auto")
+    monkeypatch.setenv("DEFUSE_STAGE_TIMING", "1")
+    monkeypatch.setattr(port.native, "_default_threads", lambda: 4)
+    screened = []
+    screen = port.screen_candidates
+    monkeypatch.setattr(port, "screen_candidates",
+                        lambda *ops: screened.append(ops) or screen(*ops))
+    split_dp_cuda.reset_launches()
+    out = tmp / f"auto_{choice}"
+    port.discover_fusions(outdir=str(out), device="cpu", **kw)
+    counters = json.loads((out / "metrics.discover.json")
+                          .read_text())["counters"]
+    route = counters["screen_route"]
+    assert (route["mode"], route["choice"]) == ("auto", choice)
+    assert route["choice"] == ("device" if route["t_dev_s"] <
+                               route["t_host_s"] else "host")
+    assert len(screened) == (choice == "device")
+    assert ("split_dp_impl" in counters) == (choice == "device")
+    assert counters.get("screen_candidates", 0) == (
+        len(screened[0][5]) if screened else 0)
+    assert split_dp_cuda.LAUNCHES == {"split_dp_rowmax": 0,
+                                      "split_dp_screen": 0}
+    assert f"[discover] screen: {choice} wins (est dev " in \
+        capsys.readouterr().out
+    for name in ARTIFACTS:
+        assert (out / name).read_bytes() == (jax_host / name).read_bytes(), \
+            name
 
 
 def test_port_needs_cuda_when_asked(dataset):

@@ -157,12 +157,13 @@ def test_one_process_without_a_launcher(monkeypatch):
         launch.init_distributed()
 
 
-def test_two_process_pipeline_parity(tmp_path):
+def test_two_process_pipeline_parity(tmp_path, monkeypatch):
     """Two ranks align their fastq shard with global fragment ids, merge
     the read-stats sums and run the pipeline tail (rank 0
     ``run_pipeline(dist=ctx)``, rank 1 ``tail_partition_worker``): the
     results, ``clusters`` and ``splitreads.break`` are the bytes of the
     port's one-process run and of ``defuse_tpu``'s."""
+    monkeypatch.setenv("DEFUSE_DEVICE_SCREEN", "force")  # rank 0 screens
     if not native.available():
         pytest.skip("native library required for the partitioned tail")
     from defuse_tpu_torch.io.fasta import write_fasta

@@ -7,6 +7,7 @@ is compared decompressed: its gzip members differ between the routes."""
 
 import pathlib
 
+import numpy as np
 import pytest
 
 from defuse_tpu.align.frontend import align_reads as jax_align_reads
@@ -94,3 +95,92 @@ def test_port_frontend_needs_cuda_when_asked(dataset):
     tmp, config, fq, _want = dataset
     with pytest.raises(RuntimeError, match="is_available"):
         port.align_reads(config, str(tmp / "no_cuda"), *fq, device="cuda")
+
+
+@pytest.fixture
+def without_native(monkeypatch):
+    """The port's frontend as it runs where the native library is absent:
+    the Python ingest, seed indices and seed path, with the verifier
+    engaged under ``auto``."""
+    monkeypatch.setattr(port.native, "available", lambda: False)
+
+
+def test_auto_verify_on_a_slow_link_takes_the_host_oracle(
+        dataset, without_native, monkeypatch):
+    """``auto`` with a link that makes the host win (1 MB/s, 100 ms) and no
+    native library: every verifier call takes the numpy oracle, and the
+    hits of every ``SeedIndex.verify`` call and the frontend's artifacts
+    are those of the forced device route (its plain version here) and
+    ``defuse_tpu``'s.  The raw counts agree at every in-bounds placement;
+    past the reference's end the two routes read different padding, and
+    ``SeedIndex.verify`` drops those placements (ROADMAP C4)."""
+    from defuse_tpu_torch.align.seedindex import SeedIndex
+    tmp, config, fq, want = dataset
+    seen = {"verify": [], "hits": []}
+    call, verify = verify_batch.DeviceVerifier.__call__, SeedIndex.verify
+
+    def counting(self, *ops):
+        counts = call(self, *ops)
+        seen["verify"].append((ops, counts))
+        return counts
+
+    def hits(self, *args, **kw):
+        out = verify(self, *args, **kw)
+        seen["hits"].append(out)
+        return out
+
+    monkeypatch.setattr(verify_batch.DeviceVerifier, "__call__", counting)
+    monkeypatch.setattr(SeedIndex, "verify", hits)
+    runs = {}
+    for mode, link in (("force", None), ("auto", ("1", "100"))):
+        if link:
+            monkeypatch.setenv("DEFUSE_LINK_BW", link[0])
+            monkeypatch.setenv("DEFUSE_LINK_RTT", link[1])
+        monkeypatch.setenv("DEFUSE_DEVICE_VERIFY", mode)
+        seen["verify"], seen["hits"] = [], []
+        res = port.align_reads(config, str(tmp / f"no_native_{mode}"), *fq,
+                               device="cpu")
+        runs[mode] = (artifact_bytes(res), dict(port.VERIFY_CALLS),
+                      seen["verify"], seen["hits"])
+    n = len(runs["force"][2])
+    assert n > 0 and len(runs["auto"][2]) == n
+    assert runs["force"][1] == {"device": n, "host": 0}
+    assert runs["auto"][1] == {"device": 0, "host": n}
+    assert runs["auto"][0] == runs["force"][0] == want
+    for a, b in zip(runs["force"][3], runs["auto"][3]):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    for (ops, forced), (_ops, host) in zip(runs["force"][2], runs["auto"][2]):
+        codes, cand_pos, _reads, read_idx, read_lens = ops
+        inside = (cand_pos >= 0) & \
+            (cand_pos + read_lens[read_idx] <= len(codes))
+        np.testing.assert_array_equal(forced[inside], host[inside])
+
+
+def test_verifier_routes_each_call(monkeypatch):
+    """``DeviceVerifier`` on CPU tensors: ``force`` and ``off`` as named,
+    ``auto`` by the cost model, each call counted by route: the host at a
+    slow link, the device at a free link against a host that verifies a
+    candidate a second (at the card's rates the numpy oracle beats the
+    device route at any link for 50 bp reads); the counts of both routes
+    agree in bounds."""
+    from defuse_tpu_torch.utils.synth import verify_case
+    codes, starts, reads, ridx, lens = verify_case(7, L=50)
+    verifier = verify_batch.DeviceVerifier("cpu")
+    expect = {"device": 0, "host": 0}
+    got = {}
+    for mode, link, route in (("force", ("1", "100"), "device"),
+                              ("off", ("1e12", "0"), "host"),
+                              ("auto", ("1", "100"), "host"),
+                              ("auto", ("1e12", "0"), "device")):
+        monkeypatch.setenv("DEFUSE_DEVICE_VERIFY", mode)
+        monkeypatch.setenv("DEFUSE_LINK_BW", link[0])
+        monkeypatch.setenv("DEFUSE_LINK_RTT", link[1])
+        if (mode, route) == ("auto", "device"):
+            monkeypatch.setattr(verify_batch, "HOST_CANDIDATES_S", 1.0)
+        got[route] = verifier(codes, starts, reads, ridx, lens)
+        expect[route] += 1
+        assert (verifier.calls_device, verifier.calls_host) == \
+            (expect["device"], expect["host"]), (mode, link)
+    inside = (starts >= 0) & (starts + lens[ridx] <= len(codes))
+    np.testing.assert_array_equal(got["device"][inside], got["host"][inside])
+    assert got["host"][inside].max() > 0

@@ -35,14 +35,16 @@ COPIED = (
     "cli/expression_plot.py", "pipeline/create_ref.py",
     "pipeline/acquire.py", "pipeline/cohort.py", "cli/main.py",
     "cli/__init__.py", "__main__.py", "cluster/matepair_em_batch.py",
-    "parallel/launch.py")
+    "parallel/launch.py", "ops/verify_batch.py", "pipeline/discover.py",
+    "core/devices.py")
 
 # module: (why it differs, names whose source must still be the reference's)
 DIVERGED = {
     "align/frontend.py": (
         "align_reads wires the port's DeviceVerifier (require_cuda, no "
-        "device probe, no cost model) where the reference imports its JAX "
-        "verifier; the rest is the reference's text",
+        "device probe; the verifier's cost model routes each call) where "
+        "the reference imports its JAX verifier, and records the calls of "
+        "each route in VERIFY_CALLS; the rest is the reference's text",
         ("SingleAlignment", "index_paired_fastq", "_align_all",
          "_align_all_native", "align_job")),
     "align/batch_realign.py": (
@@ -102,6 +104,27 @@ DIVERGED = {
          "select_memberships", "PROB_LOG_MARGIN", "BIC_MARGIN",
          "LAST_SELECT_STATS", "MAX_ITERS", "BIG", "K_BUCKETS",
          "N_BUCKETS_BASE")),
+    "ops/verify_batch.py": (
+        "the device program is plain PyTorch (verify_packed3_ref) beside "
+        "the port's CUDA kernel; verify_cost_model is back with the "
+        "reference's terms and the card's rates (DEVICE_LANES_S, "
+        "HOST_CANDIDATES_S), defaults to the card's link_profile, and "
+        "DeviceVerifier routes each call by it and counts the calls of "
+        "each route; the host route is the reference's numpy oracle",
+        ("BASES_PER_WORD",)),
+    "pipeline/discover.py": (
+        "the port's own version of the same stages: the screen's decision "
+        "is the reference's cost model (routing.screen_decision at the "
+        "card's link, recorded as screen_route), without the wait for a "
+        "device probe and the budget that bounds it: the port has no "
+        "probe; the device stages go to the port's kernels",
+        ()),
+    "core/devices.py": (
+        "require_cuda and gpu_identity in place of the TPU probe "
+        "subprocess and the compilation cache; link_profile returns the "
+        "card's link as constants measured on it, with the reference's "
+        "DEFUSE_LINK_BW/DEFUSE_LINK_RTT override, and probes nothing",
+        ()),
     "utils/profiling.py": (
         "device_trace runs torch.profiler instead of jax.profiler, and "
         "cuda_time_ms is the port's; Tracer is the reference's text",
@@ -147,7 +170,7 @@ def test_host_module_is_the_reference_source(module):
 
 def test_diverged_names_only_copied_modules():
     assert set(DIVERGED) <= set(COPIED)
-    assert len(COPIED) == len(set(COPIED)) == 54
+    assert len(COPIED) == len(set(COPIED)) == 57
 
 
 def test_tie_column_enumeration_names_its_roadmap_item():

@@ -55,6 +55,12 @@ fn, args = entry.entry(device="cpu")
 assert fn(*args)[0].shape == (64,)
 assert not foreign(), foreign()
 
+# the routing decisions at the card's link
+from defuse_tpu_torch.pipeline import routing
+assert sorted(routing.routing_table()["h100"]) == ["em", "link", "screen",
+                                                   "verify"]
+assert not foreign(), foreign()
+
 from defuse_tpu_torch.pipeline.discover import discover_fusions
 data = tmp / "data"
 outs = discover_fusions(

@@ -80,16 +80,18 @@ def run_inputs(tmp, case):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both packages' runs of each case, made once: {case: (port outputs,
-    reference outputs)}."""
+    reference outputs)}; the port's with its screen forced."""
     done = {}
 
     def get(case):
         if case not in done:
             tmp = tmp_path_factory.mktemp(f"torch_run_{case}")
             kw, values = run_inputs(tmp, case)
-            port = port_run.run_pipeline(
-                config=Config.defaults(**values),
-                output_dir=str(tmp / "port"), device="cpu", **kw)
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("DEFUSE_DEVICE_SCREEN", "force")
+                port = port_run.run_pipeline(
+                    config=Config.defaults(**values),
+                    output_dir=str(tmp / "port"), device="cpu", **kw)
             ref = jax_run(config=JaxConfig.defaults(**values),
                           output_dir=str(tmp / "jax"), use_device=False,
                           **kw)
@@ -128,6 +130,8 @@ def test_run_calls_the_fusion_and_names_the_screen(runs):
                           .read_text())["counters"]
     if native.available():
         assert counters["split_dp_impl"] == "torch"
+        assert counters["screen_route"]["choice"] == "device"
+        assert counters["screen_route"]["mode"] == "force"
 
 
 def test_run_host_only_matches_device_cpu(runs, tmp_path):

@@ -2,8 +2,9 @@
 version equals the JAX ``_verify_packed3`` (plain ``jnp`` on the CPU) and
 the ``SeedIndex.verify`` numpy oracle, exactly (integer counts,
 tolerance 0); ``DeviceVerifier(device="cpu")`` behind
-``SeedIndex.align_batch`` gives the numpy path's hits; the roofline legs'
-plain versions equal their definitions in
+``SeedIndex.align_batch``, its device route forced
+(``DEFUSE_DEVICE_VERIFY=force``), gives the numpy path's hits; the roofline
+legs' plain versions equal their definitions in
 ``scripts_dev/verify_roofline_probe.py`` (through JAX on the CPU), modulo
 2^32; the bound's work count on inputs counted by hand."""
 
@@ -22,6 +23,13 @@ from defuse_tpu_torch.convert import (MAX_VERIFY_BASES, verify_operands,
 from defuse_tpu_torch.ops import verify_batch, verify_cuda, verify_roofline
 
 from torch_cases import verify_case, verify_genome_case
+
+
+@pytest.fixture(autouse=True)
+def device_route(monkeypatch):
+    """Every verifier call on its device route (the plain version here),
+    whatever the cost model would pick."""
+    monkeypatch.setenv("DEFUSE_DEVICE_VERIFY", "force")
 
 # seed 7 has L = 53: six words a row, a width no read length of a
 # sequencer gives; 100 and 150 are the widths of 16 lanes a candidate

@@ -98,7 +98,8 @@ def test_verify_genome_case_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_verify_launches_are_counted_on_card(cuda_device):
+def test_verify_launches_are_counted_on_card(cuda_device, monkeypatch):
+    monkeypatch.setenv("DEFUSE_DEVICE_VERIFY", "force")  # the kernel's route
     verify_cuda.reset_launches()
     codes, starts, reads, ridx, lens = verify_case(seed=3)
     ops = verify_operands(codes, starts, reads, ridx, lens, cuda_device)
