@@ -8,12 +8,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. card: nvidia-smi name and power limit, CUDA version; CUDA is required;
 2. build: the native host library and the three CUDA kernels, from
    source (one ``nvcc`` each, all started together);
-3. kernel = plain version, exactly, in both launch modes over a sweep of
-   flank/read widths and edge rows and over the edge cases of
+3. kernel = plain version, exactly, for the screen, the row maxima (the
+   batch as made and sorted by length, so that other instances share each
+   lane group) and the tie columns, over a sweep of flank/read widths and
+   edge rows and over the edge cases of
    ``defuse_tpu_torch.utils.synth.EDGE_CASES`` (flank widths off the lane
    grid, flanks far shorter than the table, lengths 0, 1,024-base reads
-   that match or mismatch everywhere: the int16 range), and timed at the
-   discover path's screen shape;
+   that match or mismatch everywhere: the int16 range); the tie columns at
+   the rows of ``utils.synth.tie_rows`` (-1, 0, the read's last row, the
+   one past it, L, duplicates) and across the 32-column words
+   (``tie_boundary_case``); the screen timed at the discover path's shape;
 4. scale: the screen over a tumour-library candidate set (1,048,576
    reads of 100 bp against 4,096 flank pairs up to 480 bp): kernel time,
    an exact check against the plain version on a 65,536-read subsample,
@@ -44,8 +48,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the verifier's calls kept for phase 14;
 8. probe and roofline: each issue-probe mix = its plain version exactly;
    the census of the probe's loops and of every row loop of the screen
-   kernels against the machine code (``cuobjdump -sass``), within 20% per
-   class; the screen's roofline (its time against the work-based bound
+   and row-maxima kernels against the machine code (``cuobjdump -sass``),
+   within 20% per class; the screen's roofline (its time against the work-based bound
    and against its own census), with the probe's launches counted;
 9. the whole ``run``: ``create-ref`` and then ``run`` through
    ``defuse_tpu_torch.cli.main.main`` on the bench dataset's raw fastqs
@@ -59,10 +63,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``DEFUSE_NO_NATIVE=1``, on the dataset cut to NO_NATIVE_FUSIONS fusions
    and NO_NATIVE_BACKGROUND background pairs (the Python EM and the Python
    realign take seconds there): artifacts byte-identical to the native
-   route's on the same input, ``rowmax_kernel``'s launches counted, the
-   kernel against its plain version and timed on the route's own operands,
-   ``dp_tie_columns`` on the card equal to the same call on CPU tensors bit
-   for bit and timed; then a second child on the same input with
+   route's on the same input, one ``rowmax_kernel`` and two ``tie_kernel``
+   launches for one row-maxima and two tie-column calls, and no plain
+   version on a CUDA tensor; both kernels against their plain versions (the
+   tie columns also against the same call on CPU tensors, bit for bit) and
+   timed on the route's own operands, alone (from a CUDA graph), as a
+   wrapper call and beside their plain versions, with the row maxima's own
+   instructions (``split_dp_census.census_rowmax``) priced at the probe's
+   rates; then a second child on the same input with
    ``em_mode="device"``, the batched EM on the card in place of the Python
    oracle: the same bytes again, ``em_impl == "cuda"``, and its ``cluster``
    stage's seconds beside the oracle child's;
@@ -285,14 +293,28 @@ def sweep_case(rng, R, L, B=256, U=24):
     return (refs, ref_lens, reads, read_lens), screen
 
 
+def tie_equals_plain(dev, arrays):
+    """The tie kernel against its plain version on ``arrays`` (refs,
+    ref_lens, reads, read_lens, row_sel) on the card: the max difference
+    of the anchored maxima and of the packed words, and the plain result."""
+    from defuse_tpu_torch.ops.split_dp_batch import dp_tie_columns
+    from defuse_tpu_torch.ops.split_dp_cuda import dp_tie_columns_cuda
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    got, want = dp_tie_columns_cuda(*ts), dp_tie_columns(*ts)
+    err = max(int((g.long() - w.long()).abs().max()) if w.numel() else 0
+              for g, w in zip(got, want))
+    return err, want
+
+
 def phase_kernel_equals_plain(card, dev, rng):
     from defuse_tpu_torch.convert import screen_operands
     from defuse_tpu_torch.ops.split_dp_batch import (dp_row_maxima,
                                                      screen_candidates_ref)
     from defuse_tpu_torch.ops.split_dp_cuda import (dp_row_maxima_cuda,
                                                     screen_candidates)
-    from defuse_tpu_torch.utils.synth import EDGE_CASES, edge_case
-    err_rowmax = err_screen = 0
+    from defuse_tpu_torch.utils.synth import (EDGE_CASES, edge_case,
+                                              tie_boundary_case, tie_rows)
+    err_rowmax = err_screen = err_tie = 0
     shapes = ((60, 24), (90, 24), (100, 24), (130, 64), (128, 64),
               (257, 64), (384, 64), (512, 128))
     for R, L in shapes:
@@ -301,8 +323,18 @@ def phase_kernel_equals_plain(card, dev, rng):
         want = dp_row_maxima(*ts)
         got = dp_row_maxima_cuda(*ts)
         e = int((got - want).abs().max())
+        # the same batch sorted by length: other pairs share each group
+        order = torch.from_numpy(
+            np.lexsort((rowmax_in[1], rowmax_in[3]))).to(dev)
+        e = max(e, int((dp_row_maxima_cuda(*(t[order] for t in ts))
+                        - want[order]).abs().max()))
         err_rowmax = max(err_rowmax, e)
         check(e == 0, f"rowmax kernel differs from plain at R={R} L={L}")
+        e, (_max, packed) = tie_equals_plain(
+            dev, (*rowmax_in, tie_rows(rowmax_in[3], L, 7, seed=R + L)))
+        err_tie = max(err_tie, e)
+        check(e == 0, f"tie kernel differs from plain at R={R} L={L}")
+        check(bool(packed.any()), f"no tie column at R={R} L={L}")
         ops = screen_operands(*screen_in, dev)
         want = screen_candidates_ref(*ops)
         got = screen_candidates(*ops)
@@ -310,22 +342,36 @@ def phase_kernel_equals_plain(card, dev, rng):
         err_screen = max(err_screen, e)
         check(e == 0, f"screen kernel differs from plain at R={R} L={L}")
         check(int((want > 0).sum()) > 0, f"no survivor at R={R} L={L}")
-    say(card, f"kernel == plain (exact) in both modes at (R, L) = {shapes}")
+    say(card, f"kernel == plain (exact): screen, rowmax (as made and sorted "
+              f"by length) and tie columns at (R, L) = {shapes}")
     for name in sorted(EDGE_CASES):
         rowmax_in, screen_in = edge_case(name)
         ts = [torch.from_numpy(a).to(dev) for a in rowmax_in]
         e = int((dp_row_maxima_cuda(*ts) - dp_row_maxima(*ts)).abs().max())
         err_rowmax = max(err_rowmax, e)
         check(e == 0, f"rowmax kernel differs from plain on {name}")
+        L = rowmax_in[2].shape[1]
+        e, _want = tie_equals_plain(
+            dev, (*rowmax_in, tie_rows(rowmax_in[3], L, 7, seed=len(name))))
+        err_tie = max(err_tie, e)
+        check(e == 0, f"tie kernel differs from plain on {name}")
         ops = screen_operands(*screen_in, dev)
         want = screen_candidates_ref(*ops)
         e = int((screen_candidates(*ops) - want).abs().max())
         err_screen = max(err_screen, e)
         check(e == 0, f"screen kernel differs from plain on {name}")
         check(int(want.max()) > 0, f"no survivor on {name}")
-    say(card, "kernel == plain (exact) in both modes on the edge cases "
-              f"{sorted(EDGE_CASES)}")
-    return err_rowmax, err_screen
+    # flanks whose last column sits on either side of a 32-column word
+    arrays = tie_boundary_case()
+    e, _want = tie_equals_plain(
+        dev, (*arrays, tie_rows(arrays[3], arrays[2].shape[1], 7)))
+    err_tie = max(err_tie, e)
+    check(e == 0, "tie kernel differs from plain at the word boundaries")
+    say(card, "kernel == plain (exact), all three, on the edge cases "
+              f"{sorted(EDGE_CASES)}; tie columns with rows -1, 0, the "
+              "read's last, past it, L and duplicates, and flanks of 30-32 "
+              "and 62-64 bases")
+    return err_rowmax, err_screen, err_tie
 
 
 def screen_set(rng, B, U, R, L, read_len, max_flank, min_flank):
@@ -812,29 +858,30 @@ def phase_sass(card):
     for R in (1, 127, 128, 287, 288, 511, 512, 1023, 1024):
         check(lib.split_dp_lanes(R) == sc.shape_for(R)[0],
               f"split_dp_lanes({R}) differs from the census's shape_for")
-    rows = sc.screen_row_loops(text)
     shapes = sorted({sc.shape_for(R) for R in range(1, 1024)})
-    check(sorted(rows) == shapes,
-          f"screen kernels in the SASS {sorted(rows)}, expected {shapes}")
-    for lanes, cmax in shapes:
-        # one row loop per column count of the kernel's switch
-        found = rows[lanes, cmax]
-        check(sorted(found) == list(range(1, cmax + 1)),
-              f"screen_kernel<{cmax}, {lanes}>: row loops for C = "
-              f"{sorted(found)}, expected 1..{cmax}")
-        for C, lp in sorted(found.items()):
-            want = sc.row_census(C, lanes, cmax)["total"]
-            flush = sc.flush_census(lanes)["static"]
-            want = {k: want[k] + flush[k] for k in sc.CLASSES}
-            miss = sc.census_mismatches(want, lp["per_row"])
-            bad += [f"screen<{cmax}, {lanes}> C={C} {m}" for m in miss]
-            if miss or C in (1, cmax):
-                say(card, f"SASS screen_kernel<{cmax}, {lanes}> C={C} row "
-                          f"loop ({lp['rows_per_trip']} row per trip, "
-                          f"{lp['nested']} nested): "
-                          f"{class_row(lp['per_row'])}; census (row + the "
-                          f"flush's static part) {class_row(want)}; "
-                          f"opcodes {lp['opcodes']}")
+    for kernel in ("screen_kernel", "rowmax_kernel"):
+        rows = sc.row_loops(text, kernel)
+        check(sorted(rows) == shapes,
+              f"{kernel}s in the SASS {sorted(rows)}, expected {shapes}")
+        for lanes, cmax in shapes:
+            # one row loop per column count of the kernel's switch
+            found = rows[lanes, cmax]
+            check(sorted(found) == list(range(1, cmax + 1)),
+                  f"{kernel}<{cmax}, {lanes}>: row loops for C = "
+                  f"{sorted(found)}, expected 1..{cmax}")
+            for C, lp in sorted(found.items()):
+                want = sc.row_census(C, lanes, cmax, kernel)["total"]
+                flush = sc.flush_census(lanes)["static"]
+                want = {k: want[k] + flush[k] for k in sc.CLASSES}
+                miss = sc.census_mismatches(want, lp["per_row"])
+                bad += [f"{kernel}<{cmax}, {lanes}> C={C} {m}" for m in miss]
+                if miss or C in (1, cmax):
+                    say(card, f"SASS {kernel}<{cmax}, {lanes}> C={C} row "
+                              f"loop ({lp['rows_per_trip']} row per trip, "
+                              f"{lp['nested']} nested): "
+                              f"{class_row(lp['per_row'])}; census (row + "
+                              f"the flush's static part) {class_row(want)}; "
+                              f"opcodes {lp['opcodes']}")
     check(not bad, "census differs from the machine code by more than "
                    f"{sc.TOLERANCE:.0%}: " + "; ".join(bad))
     say(card, "census within 20% of the SASS in every class of every loop")
@@ -1032,29 +1079,49 @@ NO_NATIVE_FUSIONS, NO_NATIVE_BACKGROUND = 12, 3000
 NO_NATIVE_OUT = {"oracle": "no_native", "device": "no_native_device_em"}
 
 
+def kernel_times(fn, plain, reps):
+    """The kernel alone (``reps`` launches replayed from one CUDA graph, no
+    host time between them), the whole wrapper call (``reps`` calls back
+    to back) and the plain version, in ms."""
+    return {"ms": time_ms(fn, reps, graph=True), "call_ms": time_ms(fn, reps),
+            "plain_ms": time_ms(plain, 2)}
+
+
 def no_native_child(work, device, em_mode):
     """Phase 10's child process (``DEFUSE_NO_NATIVE=1``): discover on the
     cut dataset under ``work`` through the Python realign, the row maxima
     and tie columns on ``device``, and the EM that ``em_mode`` names: the
     Python oracle, or the batched EM on ``device``.  Prints one JSON line.
-    For the oracle: launches, the kernel against its plain version and both
-    timed on the route's own operands, ``dp_tie_columns`` on ``device``
-    against the same call on CPU tensors.  For the batched EM: what
-    ``metrics.discover.json`` says of it."""
+    Each kernel's wrapper is called as often as it launches, and no plain
+    version runs on a CUDA tensor.  For the oracle: both kernels against
+    their plain versions and timed on the route's own operands, and the
+    tie columns on ``device`` against the same call on CPU tensors.  For
+    the batched EM: what ``metrics.discover.json`` says of it."""
     from defuse_tpu_torch.cluster import native
     from defuse_tpu_torch.ops import split_dp_batch, split_dp_cuda
+    from defuse_tpu_torch.ops.split_dp_census import census_rowmax
     from defuse_tpu_torch.pipeline import discover
     check(not native.available(), "the child has the native library")
     paths = {k: work / v for k, v in (
         ("spanning", "spanning.compact"), ("improper", "improper.sam"),
         ("fastq1", "reads.1.fastq"), ("fastq2", "reads.2.fastq"),
         ("reference", "reference.fa"), ("exons", "cdna.regions"))}
-    seen = {"rowmax": [], "tie": []}
-    rowmax, tie = discover.dp_row_maxima_cuda, split_dp_batch.dp_tie_columns
+    seen = {"rowmax": [], "tie": [], "plain_on_card": 0}
+    rowmax, tie = discover.dp_row_maxima_cuda, split_dp_cuda.dp_tie_columns_cuda
+    plain = {n: getattr(split_dp_batch, n)
+             for n in ("dp_row_maxima", "dp_tie_columns")}
     discover.dp_row_maxima_cuda = \
         lambda *ops: seen["rowmax"].append(ops) or rowmax(*ops)
-    split_dp_batch.dp_tie_columns = \
+    split_dp_cuda.dp_tie_columns_cuda = \
         lambda *ops: seen["tie"].append(ops) or tie(*ops)
+
+    def watched(name):
+        def call(*ops):
+            seen["plain_on_card"] += ops[0].device.type != "cpu"
+            return plain[name](*ops)
+        return call
+    for name in plain:
+        setattr(split_dp_batch, name, watched(name))
     split_dp_cuda.reset_launches()
     outdir = work / NO_NATIVE_OUT[em_mode]
     t0 = time.time()
@@ -1062,9 +1129,17 @@ def no_native_child(work, device, em_mode):
                               em_mode=em_mode, **discover_kwargs(paths))
     seconds = time.time() - t0
     launches = dict(split_dp_cuda.LAUNCHES)
+    for name, fn in plain.items():
+        setattr(split_dp_batch, name, fn)
     check(len(seen["rowmax"]) == 1 and len(seen["tie"]) == 2,
           f"route called rowmax {len(seen['rowmax'])} and dp_tie_columns "
           f"{len(seen['tie'])} times")
+    if device == "cuda":
+        check(launches["split_dp_rowmax"] == 1
+              and launches["split_dp_tie_columns"] == 2,
+              f"route launched {launches} for 1 rowmax and 2 tie calls")
+        check(seen["plain_on_card"] == 0,
+              f"a plain version ran {seen['plain_on_card']} times on the card")
     check_no_reference_modules()
     if em_mode == "device":
         print(json.dumps({"seconds": seconds, "launches": launches}),
@@ -1072,7 +1147,7 @@ def no_native_child(work, device, em_mode):
         return 0
 
     ops = seen["rowmax"][0]
-    want = split_dp_batch.dp_row_maxima(*ops)
+    want = plain["dp_row_maxima"](*ops)
     err = int((rowmax(*ops) - want).abs().max())
     check(int(want.max()) > 0, "no-native: no row clears the anchor")
     ref_lens, read_lens = (t.cpu().numpy().astype(np.int64)
@@ -1080,21 +1155,34 @@ def no_native_child(work, device, em_mode):
     rec = {"seconds": seconds, "launches": launches, "err": err,
            "instances": int(ops[0].shape[0]),
            "R": int(ops[0].shape[1]), "L": int(ops[2].shape[1]),
-           "ms": time_ms(lambda: rowmax(*ops), 10),
-           "plain_ms": time_ms(
-               lambda: split_dp_batch.dp_row_maxima(*ops), 2),
+           **kernel_times(lambda: rowmax(*ops),
+                          lambda: plain["dp_row_maxima"](*ops), 20),
            "cells": int((read_lens * (ref_lens + 1)).sum()),
+           "census": census_rowmax(ref_lens, read_lens, int(ops[0].shape[1]),
+                                   int(ops[2].shape[1]))["instructions"],
            "bytes": sum(t.numel() * t.element_size() for t in ops)
            + 4 * want.numel(), "tie": []}
     for ops in seen["tie"]:
         got = tie(*ops)
-        cpu = tie(*(t.cpu() for t in ops))
-        check(all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu)),
-              "dp_tie_columns on the card differs from CPU tensors")
+        want = plain["dp_tie_columns"](*ops)
+        cpu = plain["dp_tie_columns"](*(t.cpu() for t in ops))
+        check(all(torch.equal(g.cpu(), c) and torch.equal(w.cpu(), c)
+                  for g, w, c in zip(got, want, cpu)),
+              "tie columns on the card differ from the plain version or "
+              "from CPU tensors")
         check(bool(cpu[1].any()), "dp_tie_columns: no tie column set")
-        rec["tie"].append({"winners": int(ops[0].shape[0]),
-                           "rows": int(ops[4].shape[1]),
-                           "ms": time_ms(lambda: tie(*ops), 3)})
+        refs, ref_lens, reads, _read_lens, sel = (t.cpu().numpy()
+                                                  for t in ops)
+        L = reads.shape[1]
+        rows = np.where((sel >= 1) & (sel <= L), sel, 0).max(axis=1)
+        rec["tie"].append({
+            "winners": int(refs.shape[0]), "rows": int(sel.shape[1]),
+            "err": 0, **kernel_times(lambda: tie(*ops),
+                                     lambda: plain["dp_tie_columns"](*ops),
+                                     20),
+            "cells": int((rows.astype(np.int64) * (ref_lens + 1)).sum()),
+            "bytes": sum(t.numel() * t.element_size() for t in ops)
+            + sum(4 * w.numel() for w in want)})
     print(json.dumps(rec), flush=True)
     return 0
 
@@ -1175,8 +1263,9 @@ def phase_no_native(card, work, device):
                           .read_text())
     check(counters["counters"].get("split_dp_impl") == IMPL[device],
           "no-native: split_dp_impl")
-    check(rec["launches"]["split_dp_rowmax"] >= 1,
-          "no-native: rowmax kernel never launched")
+    check(rec["launches"]["split_dp_rowmax"] == 1
+          and rec["launches"]["split_dp_tie_columns"] == 2,
+          f"no-native: launches {rec['launches']}")
     check(rec["err"] == 0, "rowmax kernel differs from plain on the "
                            "route's operands")
     stages = " ".join(f"{s['stage'].removeprefix('discover:')}="
@@ -1187,11 +1276,16 @@ def phase_no_native(card, work, device):
               f"byte-identical; launches {rec['launches']}")
     say(card, f"no-native stages (s): {stages}")
     say(card, f"rowmax_kernel on the route's operands ({rec['instances']} "
-              f"instances, R={rec['R']}, L={rec['L']}): {rec['ms']:.4f} ms, "
-              f"plain {rec['plain_ms']:.3f} ms, max_abs_err {rec['err']}; "
-              f"dp_tie_columns (torch, == CPU tensors bit for bit): " +
-              "; ".join(f"{t['winners']} winners x {t['rows']} rows "
-                        f"{t['ms']:.3f} ms" for t in rec["tie"]))
+              f"instances, R={rec['R']}, L={rec['L']}): kernel "
+              f"{rec['ms']:.4f} ms, wrapper call "
+              f"{rec['call_ms']:.4f} ms (PRs 5-8: 0.0469-0.0657 ms a call), "
+              f"plain {rec['plain_ms']:.3f} ms, max_abs_err {rec['err']}")
+    say(card, "tie columns on the route's operands (== plain and == CPU "
+              "tensors bit for bit): " + "; ".join(
+                  f"{t['winners']} winners x {t['rows']} rows: kernel "
+                  f"{t['ms']:.4f} ms, wrapper call {t['call_ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.3f} ms" for t in rec["tie"])
+              + " (the plain version on the card, PRs 5-8: 8.4-13.9 ms)")
     no_native_device_em(card, cut, device, recs)
     rec["device_em"] = recs["device"]
     return rec
@@ -1617,6 +1711,7 @@ def phase_dryrun(card, device):
     rowmax = [r["launches"]["split_dp_rowmax"] for r in ranks]
     check(all(k >= 3 for k in rowmax) or device == "cpu",
           f"dryrun: rowmax_kernel launches by rank {rowmax}")
+    tie = [r["launches"]["split_dp_tie_columns"] for r in ranks]
     say(card, f"dryrun_multichip(2): {rec['seconds']:.3f} s; ranks on "
               f"{[r['device'] for r in ranks]} ({ranks[0]['backend']}), "
               f"mesh {ranks[0]['mesh']['shape']}; step "
@@ -1625,9 +1720,9 @@ def phase_dryrun(card, device):
               f"{[round(r['sharded_s'], 3) for r in ranks]} s; "
               f"{ranks[0]['em_rows']} EM rows and "
               f"{ranks[0]['rowmax_instances']} row-maxima instances sharded; "
-              f"rowmax_kernel launches by rank {rowmax}")
+              f"launches by rank: rowmax_kernel {rowmax}, tie_kernel {tie}")
     return {"seconds": rec["seconds"], "rowmax_launches": sum(rowmax),
-            "ranks": ranks}
+            "tie_launches": sum(tie), "ranks": ranks}
 
 
 # --- phase 14 ---------------------------------------------------------------
@@ -1981,7 +2076,8 @@ def main() -> int:
 
     rng = np.random.default_rng(2024)
     # --- phase 3: kernel == plain ----------------------------------------
-    err_rowmax, err_screen = phase_kernel_equals_plain(card, dev, rng)
+    err_rowmax, err_screen, err_tie = phase_kernel_equals_plain(card, dev,
+                                                                rng)
     main_ms, main_plain_ms, e, main_work = phase_main_shape(card, dev, rng)
     err_screen = max(err_screen, e)
     # --- phase 4: scale --------------------------------------------------
@@ -2040,23 +2136,48 @@ def main() -> int:
     rowmax_by_path = {"no_native": no_native["launches"]["split_dp_rowmax"],
                       "entry": entry_rec["launches"],
                       "dryrun": dryrun_rec["rowmax_launches"]}
-    rowmax = {"launches": sum(rowmax_by_path.values()),
-              "launches_by_path": rowmax_by_path,
-              "max_abs_err": max(err_rowmax, no_native["err"]),
-              "instances": no_native["instances"], "R": no_native["R"],
-              "L": no_native["L"], "cells": no_native["cells"],
-              "ms": no_native["ms"], "plain_ms": no_native["plain_ms"],
-              "bound_ms": rowmax_bound, "bound_by": rowmax_by,
-              "library_ms": None, "dp_tie_columns": no_native["tie"],
-              "entry": {k: entry_rec[k] for k in ("ms", "plain_ms")}}
-    say(card, f"rowmax_kernel on the no-native route: "
-              f"{rowmax_by_path['no_native']} launch for "
-              f"{rowmax['instances']} instances, "
-              f"{rowmax['ms']:.4f} ms, bound {rowmax_bound:.4f} ms by "
-              f"{rowmax_by} ({100 * rowmax_bound / rowmax['ms']:.1f}% of "
-              f"bound, {rowmax['cells']} cells), plain "
-              f"{rowmax['plain_ms']:.3f} ms, max_abs_err "
-              f"{rowmax['max_abs_err']}")
+    rowmax = {
+        "name": "split_dp_rowmax", "route": "cuda",
+        "source": "defuse_tpu_torch/csrc/split_dp.cu",
+        "replaces": "defuse_tpu/ops/split_dp_pallas.py:222",
+        "launches": sum(rowmax_by_path.values()),
+        "launches_by_path": rowmax_by_path,
+        "max_abs_err": max(err_rowmax, no_native["err"]),
+        "ms": no_native["ms"], "plain_ms": no_native["plain_ms"],
+        "bound_ms": rowmax_bound, "bound_by": rowmax_by, "library_ms": None,
+        "call_ms": no_native["call_ms"],
+        "census_ms": sc.census_ms(no_native["census"], cost16),
+        "instances": no_native["instances"], "R": no_native["R"],
+        "L": no_native["L"], "cells": no_native["cells"],
+        "entry": {k: entry_rec[k] for k in ("ms", "plain_ms")}}
+    # the route's two tie calls, the slower one as the kernel's reading
+    ties = no_native["tie"]
+    for t in ties:
+        t["bound_ms"], t["bound_by"] = bound(
+            t["bytes"], sc.screen_bound_ms(t["cells"], cost16))
+    slow = max(ties, key=lambda t: t["ms"])
+    tie_by_path = {"no_native": no_native["launches"]["split_dp_tie_columns"],
+                   "dryrun": dryrun_rec["tie_launches"]}
+    tie = {"name": "split_dp_tie_columns", "route": "cuda",
+           "source": "defuse_tpu_torch/csrc/split_dp.cu",
+           "replaces": "defuse_tpu/ops/split_dp_batch.py:113",
+           "launches": sum(tie_by_path.values()),
+           "launches_by_path": tie_by_path,
+           "max_abs_err": max(err_tie, *(t["err"] for t in ties)),
+           "ms": slow["ms"], "plain_ms": slow["plain_ms"],
+           "bound_ms": slow["bound_ms"], "bound_by": slow["bound_by"],
+           "library_ms": None, "call_ms": slow["call_ms"], "calls": ties}
+    say(card, f"rowmax_kernel's own instructions on the route (the census of "
+              f"its row loop, {no_native['census']}) at the probe's rates: "
+              f"{rowmax['census_ms']:.4f} ms, "
+              f"{100 * rowmax['census_ms'] / rowmax['ms']:.1f}% of its time")
+    for k in (rowmax, tie):
+        say(card, f"{k['name']} on the no-native route: "
+                  f"{k['launches_by_path']['no_native']} launches; kernel "
+                  f"{k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+                  f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of "
+                  f"bound), wrapper call {k['call_ms']:.4f} ms, plain "
+                  f"{k['plain_ms']:.3f} ms, max_abs_err {k['max_abs_err']}")
     say(card, f"screen at scale: {scale_ms:.3f} ms, bound {scale_bound:.3f} "
               f"ms ({100 * scale_bound / scale_ms:.1f}% of bound, "
               f"{scale_work['cells']} cells)")
@@ -2072,8 +2193,7 @@ def main() -> int:
             "dist_run": dist_rec["screen_launches"]},
         "max_abs_err": err_screen, "ms": main_ms,
         "plain_ms": main_plain_ms, "bound_ms": screen_bound,
-        "bound_by": screen_by, "library_ms": None,
-        "rowmax_kernel": rowmax}, {
+        "bound_by": screen_by, "library_ms": None}, rowmax, tie, {
         "name": "verify_packed3", "route": "cuda",
         "source": "defuse_tpu_torch/csrc/verify.cu",
         "replaces": "defuse_tpu/ops/verify_batch.py:86",
@@ -2094,7 +2214,7 @@ def main() -> int:
         "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
         "bound_by": probe_by, "library_ms": None}]
     say(card, "kernels at the main path's shapes (no PyTorch call computes "
-              "any of the three functions): " + "; ".join(
+              "any of the five functions): " + "; ".join(
                   f"{k['name']} {k['ms']:.4f} ms, {k['launches']} launches, "
                   f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
                   f"({100 * k['bound_ms'] / k['ms']:.1f}%)" for k in kernels))

@@ -336,12 +336,14 @@ def _pad_len(x: int, mult: int = 128) -> int:
 
 def _device_tie_columns(refs, reads, wanted_rows, win_idx, R, max_rows,
                         ref_lens_sub, device="cuda"):
-    """Tie columns via ``ops.split_dp_batch.dp_tie_columns`` on ``device``.
+    """Tie columns via ``ops.split_dp_cuda.dp_tie_columns_cuda`` on
+    ``device`` (the kernel on a CUDA device, the plain version on the CPU).
     Returns {(original_b, j): [columns]} (anchored-max semantics built
     in: rows whose max is below MIN_SPLIT_SCORE get no columns)."""
     from ..convert import tie_operands
     from ..core.devices import require_cuda
-    from ..ops.split_dp_batch import dp_tie_columns, pad_batch
+    from ..ops.split_dp_batch import pad_batch
+    from ..ops.split_dp_cuda import dp_tie_columns_cuda
 
     B = len(refs)
     L = _pad_len(max(len(r) for r in reads), 64)
@@ -350,7 +352,7 @@ def _device_tie_columns(refs, reads, wanted_rows, win_idx, R, max_rows,
     row_sel = np.full((B, max_rows), -1, dtype=np.int32)
     for i, rows in enumerate(wanted_rows):
         row_sel[i, :len(rows)] = rows
-    rowmax, packed = dp_tie_columns(*tie_operands(
+    rowmax, packed = dp_tie_columns_cuda(*tie_operands(
         refs_p, _rl, reads_p, _ql, row_sel, require_cuda(device)))
     packed = np.ascontiguousarray(packed.cpu().numpy())
     rowmax = rowmax.cpu().numpy()

@@ -1,9 +1,12 @@
 // Split-read DP for Hopper (sm_90a): a group of 8, 16 or 32 lanes per
 // candidate, both of its DPs in the two halves of int16x2 registers.
 //
-// Replaces the TPU kernel defuse_tpu/ops/split_dp_pallas.py::_dp_kernel,
-// and, in the screen entry, also the flank gather, read reversal and
-// combine that _screen_candidates wraps around it.
+// Replaces the TPU kernel defuse_tpu/ops/split_dp_pallas.py::_dp_kernel
+// (rowmax_kernel and, with the flank gather, read reversal and combine
+// that _screen_candidates wraps around it, screen_kernel), and the XLA
+// program defuse_tpu/ops/split_dp_batch.py::dp_tie_columns (tie_kernel).
+// All three run the same row step (dp_rows; tie_rows repeats it) at the
+// lanes a group that shape_for gives the table's width.
 //
 // Recurrence (integer, bit-exact with ops/split_dp_batch.dp_row_maxima):
 // DP column i = 0..ref_len holds ref position i-1 (column 0 is the
@@ -27,7 +30,8 @@
 //   row count n and nothing else; they run in the low and the high half of
 //   the same registers through the 16x2 DPX instructions (VIADDMNMX.S16,
 //   VIMNMX.S16, VIADD.16), so one set of shuffles and one row reduction
-//   serves both.  The row-maxima entry packs two instances the same way.
+//   serves both.  The row-maxima and tie entries pack two instances the
+//   same way.
 // * No gap arithmetic.  With w[j][i] = col[j][i] - GAP*(i+j) (GAP = -2:
 //   w = col + 2i + 2j) a vertical or horizontal gap step costs nothing and
 //   the diagonal adds s = sub - 2*GAP, 6 on a match and 3 otherwise:
@@ -61,6 +65,13 @@
 //   nothing of the rest.
 // * Row maxima leave the row loop as one shared-memory store a lane; every
 //   32 rows the group reduces its tile transposed (a lane takes whole rows).
+// * Tie columns (tie_kernel) keep no rows: the DP runs to the largest row a
+//   warp selects, and at a selected row the group reduces its row min by
+//   shuffles, and each lane tests its own columns against it in the z
+//   registers (z + 2i == min) and ORs the hits into the row's words in
+//   shared memory, written once to each slot that names the row.  Its bound
+//   is the same integer issue over the cells up to each instance's largest
+//   selected row.
 //
 // Value ranges (int16): j <= 1024 rows, i <= 1023.  Valid w = col+2i+2j lies
 // in [0, 4j+2i] <= 6142 (col in [-2j, 2j]); w + s <= 6148.  Left of column 0
@@ -211,6 +222,12 @@ __device__ __forceinline__ void dp_rows(const Pair& pr, int rows,
   if (r) reduce_tile<LANES>(pr, rows - r + 1, r, g, min_split);
 }
 
+// every column count a lane of the switches below
+#define FOR_COLUMNS(X)                                                     \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)     \
+  X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25)  \
+  X(26) X(27) X(28) X(29) X(30) X(31) X(32)
+
 // dp_rows<C> for the least C that holds every flank of the warp, C <= CMAX.
 template <int CMAX, int LANES>
 __device__ __forceinline__ void dp_dispatch(const Pair& pr, int min_split,
@@ -222,14 +239,7 @@ __device__ __forceinline__ void dp_dispatch(const Pair& pr, int min_split,
   case K:                                                                  \
     if constexpr (K <= CMAX) dp_rows<K, LANES>(pr, rows, min_split, g);    \
     break;
-  switch ((need + LANES - 1) / LANES) {
-    DP_CASE(1) DP_CASE(2) DP_CASE(3) DP_CASE(4) DP_CASE(5) DP_CASE(6)
-    DP_CASE(7) DP_CASE(8) DP_CASE(9) DP_CASE(10) DP_CASE(11) DP_CASE(12)
-    DP_CASE(13) DP_CASE(14) DP_CASE(15) DP_CASE(16) DP_CASE(17) DP_CASE(18)
-    DP_CASE(19) DP_CASE(20) DP_CASE(21) DP_CASE(22) DP_CASE(23) DP_CASE(24)
-    DP_CASE(25) DP_CASE(26) DP_CASE(27) DP_CASE(28) DP_CASE(29) DP_CASE(30)
-    DP_CASE(31) DP_CASE(32)
-  }
+  switch ((need + LANES - 1) / LANES) { FOR_COLUMNS(DP_CASE) }
 #undef DP_CASE
   __syncwarp();
 }
@@ -290,6 +300,213 @@ rowmax_kernel(const uint8_t* __restrict__ refs,
     if (one) row0[j] = j <= n0 ? lo16(v) : 0;
     if (two) row1[j] = j <= n1 ? hi16(v) : 0;
   }
+}
+
+// Tie columns.  Shared memory of one group: the negated read characters of
+// each row, the rows each half captures (one bit a row, a set per half) and
+// the tie words of the row being captured, per half.
+__host__ __device__ inline int row_set_words(int L) { return (L + 32) / 32; }
+constexpr int kMaxWords = 32;  // (R+1)/32 words a captured row, R+1 <= 1024
+
+__host__ __device__ inline int tie_smem_words(int L) {
+  return align16(L) + 2 * align16(row_set_words(L)) + 2 * kMaxWords;
+}
+
+// Where one half's captured rows go: its instance's M row selections and
+// output slots (rowmax[m], packed[m*W .. m*W+W-1]).
+struct Slots {
+  const int* sel;
+  int* rowmax;
+  int* packed;
+  bool live;
+};
+
+// OR the tie bits of a lane's C <= 32 columns, DP columns base..base+C-1,
+// into the row's words (only columns >= 0 can tie).
+__device__ __forceinline__ void set_bits(unsigned* words, unsigned bits,
+                                         int base) {
+  if (!bits) return;
+  const unsigned long long v = (unsigned long long)bits << (base & 31);
+  const int w = base >> 5;  // floor: -1 for a lane that starts left of 0
+  if ((unsigned)v) atomicOr(&words[w], (unsigned)v);
+  if ((unsigned)(v >> 32)) atomicOr(&words[w + 1], (unsigned)(v >> 32));
+}
+
+// The captured row j into every slot of the half that selects it.
+template <int LANES>
+__device__ __forceinline__ void emit(const Slots& s, int M, int W, int j,
+                                     int score, const unsigned* words,
+                                     int g) {
+  for (int m = 0; m < M; ++m) {
+    if (s.sel[m] != j) continue;
+    if (g == 0) s.rowmax[m] = score;
+    for (int w = g; w < W; w += LANES) s.packed[m * W + w] = (int)words[w];
+  }
+}
+
+// The rows of one warp up to `rows` (the largest row any group selects),
+// with dp_rows' registers and row step, repeated here: the step moved into
+// a helper shared with dp_rows put the screen's columns in local memory
+// (measured: 5.5 times its time).  At a row that any group captures
+// the whole warp stops: each capturing group reduces its row min, and where
+// a half's max clears the anchor each lane sets the bits of its own
+// columns that reach it, z[c] + 2i == min_i(z + 2i), before the words go
+// to every slot that names the row.
+template <int C, int LANES>
+__device__ __forceinline__ void tie_rows(const Pair& pr, int rows,
+                                         int min_split, int g,
+                                         const unsigned* cap_lo,
+                                         const unsigned* cap_hi,
+                                         unsigned* words_lo,
+                                         unsigned* words_hi, const Slots& lo,
+                                         const Slots& hi, int M, int W) {
+  constexpr int CW = LANES * C;
+  const int off_lo = CW - 1 - pr.len_lo, off_hi = CW - 1 - pr.len_hi;
+  unsigned rc[C], z[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int a = g * C + c - off_lo, b = g * C + c - off_hi;
+    const unsigned lo_ch = a >= 1 ? pr.ref_lo[a - 1] : 0u;
+    const unsigned hi_ch = b >= 1 ? pr.ref_hi[b - 1] : 0u;
+    rc[c] = (lo_ch << 2) | (hi_ch << 18);
+    z[c] = pack2(a >= 0 ? -2 * a : kFar, b >= 0 ? -2 * b : kFar);
+  }
+  const unsigned lane_term =
+      pack2(2 * (g * C - off_lo), 2 * (g * C - off_hi));
+  constexpr unsigned kFar2 = pack2(kFar, kFar);
+  unsigned left = __shfl_up_sync(kFull, z[C - 1], 1, LANES);
+  if (g == 0) left = kFar2;
+
+  const unsigned* nrd_row = pr.nrd;
+  for (int j = 1; j <= rows; ++j) {
+    const unsigned nrd = *nrd_row++;
+    // dp_rows' row step
+#pragma unroll
+    for (int c = C - 1; c >= 0; --c) {
+      const unsigned diag = (c == 0) ? left : z[c - 1];
+      const unsigned miss = __viaddmin_u16x2(rc[c], nrd, 0x00030003u);
+      z[c] = __viaddmin_s16x2(__vadd2(diag, miss), pack2(-6, -6), z[c]);
+    }
+    unsigned tail = z[0];
+#pragma unroll
+    for (int c = 1; c + 1 < C; c += 2) tail = __vimin3_s16x2(tail, z[c], z[c + 1]);
+    if constexpr (C % 2 == 0) tail = __vmins2(tail, z[C - 1]);
+#pragma unroll
+    for (int d = 1; d < LANES; d <<= 1)
+      tail = __vmins2(tail, __shfl_up_sync(kFull, tail, d, LANES));
+    left = __shfl_up_sync(kFull, tail, 1, LANES);
+    if (g == 0) left = kFar2;
+    unsigned run = left, best = kFar2;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      run = __vmins2(run, z[c]);
+      z[c] = run;
+      best = __viaddmin_s16x2(run, pack2(2 * c, 2 * c), best);
+    }
+
+    const unsigned f = ((cap_lo[j >> 5] >> (j & 31)) & 1u) |
+                       (((cap_hi[j >> 5] >> (j & 31)) & 1u) << 1);
+    if (!__any_sync(kFull, f)) continue;
+    unsigned m = __vadd2(best, lane_term);
+#pragma unroll
+    for (int d = LANES / 2; d >= 1; d >>= 1)
+      m = __vmins2(m, __shfl_xor_sync(kFull, m, d, LANES));
+    const int s_lo = -lo16(m) - 2 * j, s_hi = -hi16(m) - 2 * j;
+    const bool a_lo = (f & 1u) && s_lo >= min_split;
+    const bool a_hi = (f & 2u) && s_hi >= min_split;
+    for (int w = g; w < W; w += LANES) words_lo[w] = words_hi[w] = 0u;
+    __syncwarp();
+    if (a_lo || a_hi) {
+      const unsigned target = __vsub2(m, lane_term);
+      unsigned bits_lo = 0u, bits_hi = 0u;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const unsigned eq =
+            __vcmpeq2(__vadd2(z[c], pack2(2 * c, 2 * c)), target);
+        bits_lo |= (eq & 1u) << c;
+        bits_hi |= (eq >> 31) << c;
+      }
+      if (a_lo) set_bits(words_lo, bits_lo, g * C - off_lo);
+      if (a_hi) set_bits(words_hi, bits_hi, g * C - off_hi);
+    }
+    __syncwarp();
+    if (f & 1u) emit<LANES>(lo, M, W, j, a_lo ? s_lo : 0, words_lo, g);
+    if (f & 2u) emit<LANES>(hi, M, W, j, a_hi ? s_hi : 0, words_hi, g);
+    __syncwarp();
+  }
+}
+
+// Two instances a group (2p in the low half, 2p+1 in the high half), as
+// rowmax_kernel pairs them.  Rows come from the read as stored, pad
+// included, as in the plain version.
+template <int CMAX, int LANES>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+tie_kernel(const uint8_t* __restrict__ refs,
+           const int* __restrict__ ref_lens, int R,
+           const uint8_t* __restrict__ reads, int L,
+           const int* __restrict__ row_sel, int M,
+           int* __restrict__ rowmax, int* __restrict__ packed, int B,
+           Scores sc) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int g = threadIdx.x % LANES;
+  const int W = (R + 1 + 31) / 32;
+  const int64_t pair =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  const int64_t b0 = 2 * pair;
+  // a group past the end stays for the warp's shuffles, on nothing
+  const bool one = b0 < B, two = b0 + 1 < B;
+  const int64_t i0 = one ? b0 : 0, i1 = two ? b0 + 1 : i0;
+  unsigned* nrd = smem + (threadIdx.x / LANES) * tie_smem_words(L);
+  unsigned* cap_lo = nrd + align16(L);
+  unsigned* cap_hi = cap_lo + align16(row_set_words(L));
+  unsigned* words_lo = cap_hi + align16(row_set_words(L));
+  unsigned* words_hi = words_lo + kMaxWords;
+  const Slots lo{row_sel + i0 * M, rowmax + i0 * M, packed + i0 * M * W, one};
+  const Slots hi{row_sel + i1 * M, rowmax + i1 * M, packed + i1 * M * W, two};
+
+  // the rows each half captures; a slot that names no row of the DP (-1,
+  // row 0, past L) gets max 0 and no bits now
+  for (int w = g; w < row_set_words(L); w += LANES) cap_lo[w] = cap_hi[w] = 0u;
+  __syncwarp();
+  int last = 0;
+  for (int t = g; t < 2 * M; t += LANES) {
+    const Slots& s = t < M ? lo : hi;
+    const int m = t < M ? t : t - M;
+    if (!s.live) continue;
+    const int j = s.sel[m];
+    if (j >= 1 && j <= L) {
+      atomicOr(&(t < M ? cap_lo : cap_hi)[j >> 5], 1u << (j & 31));
+      last = max(last, j);
+    } else {
+      s.rowmax[m] = 0;
+      for (int w = 0; w < W; ++w) s.packed[m * W + w] = 0;
+    }
+  }
+  const int rows = __reduce_max_sync(kFull, last);
+  const uint8_t* rd0 = reads + i0 * L;
+  const uint8_t* rd1 = reads + i1 * L;
+  for (int p = g; p < rows; p += LANES)
+    nrd[p] = neg4(rd0[p]) | (neg4(rd1[p]) << 16);
+  __syncwarp();
+
+  Pair pr;
+  pr.ref_lo = refs + i0 * R;
+  pr.ref_hi = refs + i1 * R;
+  pr.len_lo = one ? min(max(ref_lens[i0], 0), R) : 0;
+  pr.len_hi = two ? min(max(ref_lens[i1], 0), R) : 0;
+  pr.nrd = nrd;
+  // columns a lane rounded up to a multiple of 4 (or CMAX): a quarter of
+  // the row loops to compile, for at most 3 columns a lane more
+  const int need = __reduce_max_sync(kFull, max(pr.len_lo, pr.len_hi) + 1);
+  const int cols = min(((need + LANES - 1) / LANES + 3) / 4 * 4, CMAX);
+#define TIE_CASE(K)                                                        \
+  case K:                                                                  \
+    if constexpr (K <= CMAX && (K % 4 == 0 || K == CMAX))                  \
+      tie_rows<K, LANES>(pr, rows, sc.min_split, g, cap_lo, cap_hi,        \
+                         words_lo, words_hi, lo, hi, M, W);                \
+    break;
+  switch (cols) { FOR_COLUMNS(TIE_CASE) }
+#undef TIE_CASE
 }
 
 // One candidate a group: flank 1 and the read in the low half, the reversed
@@ -396,28 +613,74 @@ extern "C" {
 // own flanks.
 int split_dp_lanes(int R) { return shape_for(R).lanes; }
 
-// rowmax (B, L+1) int32 for per-instance flanks refs (B, R) uint8.
+// rowmax (B, L+1) int32 for per-instance flanks refs (B, R) uint8, two
+// instances to a group of shape_for(R) lanes.
 int split_dp_rowmax(const void* refs, const void* ref_lens, int R,
                     const void* reads, const void* read_lens, int L,
                     void* out, int B, int match, int mismatch, int gap,
                     int min_split, void* stream) {
   const Scores sc{match, mismatch, gap, min_split};
-  if (!scores_supported(sc) || L > kMaxRead || R + 1 > kWarp * 32)
+  const Shape sh = shape_for(R);
+  if (!scores_supported(sc) || L > kMaxRead || !sh.lanes)
     return (int)cudaErrorInvalidValue;
-  // off the screen's path: one kernel, a warp a pair, any C up to 32
-  const size_t shmem = block_smem(L, kWarp);
+  const size_t shmem = block_smem(L, sh.lanes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* f = static_cast<const uint8_t*>(refs);
   const auto* fl = static_cast<const int*>(ref_lens);
   const auto* r = static_cast<const uint8_t*>(reads);
   const auto* rl = static_cast<const int*>(read_lens);
   auto* o = static_cast<int*>(out);
-  const dim3 grid = grid_for(((int64_t)B + 1) / 2, kWarp);
+  const dim3 grid = grid_for(((int64_t)B + 1) / 2, sh.lanes);
   const dim3 block(kWarp * kWarpsPerBlock);
-  const cudaError_t e = allow_smem(rowmax_kernel<32, kWarp>, shmem);
+  cudaError_t e = cudaErrorInvalidValue;
+#define LAUNCH(LN, CM)                                                      \
+  if (sh.lanes == LN && sh.cmax == CM) {                                    \
+    e = allow_smem(rowmax_kernel<CM, LN>, shmem);                           \
+    if (e == cudaSuccess)                                                   \
+      rowmax_kernel<CM, LN><<<grid, block, shmem, st>>>(f, fl, R, r, rl, L, \
+                                                        o, B, sc);          \
+  }
+  FOR_SHAPES(LAUNCH)
+#undef LAUNCH
   if (e != cudaSuccess) return (int)e;
-  rowmax_kernel<32, kWarp><<<grid, block, shmem, st>>>(f, fl, R, r, rl, L, o,
-                                                       B, sc);
+  return (int)cudaGetLastError();
+}
+
+// Tie columns of the rows row_sel (B, M) int32: rowmax (B, M) int32, the
+// anchored max of each row (0 below min_split, and for a slot that names
+// no row of the DP: -1, 0 or past L), and packed (B, M, ceil((R+1)/32))
+// int32, bit i of word w set where column 32w+i of the row reaches it.
+int split_dp_tie_columns(const void* refs, const void* ref_lens, int R,
+                         const void* reads, int L, const void* row_sel,
+                         int M, void* rowmax, void* packed, int B, int match,
+                         int mismatch, int gap, int min_split,
+                         void* stream) {
+  const Scores sc{match, mismatch, gap, min_split};
+  const Shape sh = shape_for(R);
+  if (!scores_supported(sc) || L > kMaxRead || !sh.lanes)
+    return (int)cudaErrorInvalidValue;
+  const size_t shmem =
+      (size_t)(kWarp * kWarpsPerBlock / sh.lanes) * tie_smem_words(L) * 4;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint8_t*>(refs);
+  const auto* fl = static_cast<const int*>(ref_lens);
+  const auto* r = static_cast<const uint8_t*>(reads);
+  const auto* sel = static_cast<const int*>(row_sel);
+  auto* rm = static_cast<int*>(rowmax);
+  auto* pk = static_cast<int*>(packed);
+  const dim3 grid = grid_for(((int64_t)B + 1) / 2, sh.lanes);
+  const dim3 block(kWarp * kWarpsPerBlock);
+  cudaError_t e = cudaErrorInvalidValue;
+#define LAUNCH(LN, CM)                                                      \
+  if (sh.lanes == LN && sh.cmax == CM) {                                    \
+    e = allow_smem(tie_kernel<CM, LN>, shmem);                              \
+    if (e == cudaSuccess)                                                   \
+      tie_kernel<CM, LN><<<grid, block, shmem, st>>>(f, fl, R, r, L, sel,   \
+                                                     M, rm, pk, B, sc);     \
+  }
+  FOR_SHAPES(LAUNCH)
+#undef LAUNCH
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

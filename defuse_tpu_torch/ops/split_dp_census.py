@@ -136,14 +136,22 @@ def _total(items: dict) -> dict:
 # the code.
 RECOMPUTED = {(8, 16, 16): 12, (16, 18, 15): 15, (32, 16, 15): 12,
               (32, 16, 16): 18}
+# the same for the row-maxima kernel's copies of the row loop, read from
+# its SASS (nvcc 12.8, sm_90a)
+RECOMPUTED_ROWMAX = {(8, 16, 16): 13, (16, 18, 17): 18, (32, 16, 16): 13,
+                     (32, 32, 31): 26}
 
 
-def row_census(C: int, lanes: int = WARP, cmax: int | None = None) -> dict:
+def row_census(C: int, lanes: int = WARP, cmax: int | None = None,
+               kernel: str = "screen_kernel") -> dict:
     """Warp instructions of one DP row of ``dp_rows<C, LANES>`` by class,
-    itemized as nvcc compiles each source operation for sm_90a, in the
-    screen kernel built for up to ``cmax`` columns a lane (``RECOMPUTED``
+    itemized as nvcc compiles each source operation for sm_90a, in
+    ``kernel`` (``screen_kernel`` or ``rowmax_kernel``) built for up to
+    ``cmax`` columns a lane (``RECOMPUTED`` or ``RECOMPUTED_ROWMAX``
     applies when it is given).  Memory instructions (the row's read
     characters, the tile store) and branches are left out."""
+    recomputed = RECOMPUTED_ROWMAX if kernel == "rowmax_kernel" \
+        else RECOMPUTED
     steps = _log2(lanes)
     items = {
         # pointer step of the row's read characters
@@ -165,7 +173,7 @@ def row_census(C: int, lanes: int = WARP, cmax: int | None = None) -> dict:
         # row counter and tile-row counter: add and compare each
         "loop": {"alu": 4},
         # what nvcc adds: the shuffles' mask in a uniform register, a move
-        "moves": {"alu": 2 + RECOMPUTED.get((lanes, cmax, C), 0)},
+        "moves": {"alu": 2 + recomputed.get((lanes, cmax, C), 0)},
     }
     return {"items": items, "total": _total(items)}
 
@@ -223,6 +231,46 @@ def census_screen_ops(R: int, L: int, read_len: int,
             "candidates_per_warp": share, "per_row": row,
             "per_candidate": per_candidate,
             "warp_instructions_per_candidate": sum(per_candidate.values())}
+
+
+def census_rowmax(ref_lens, read_lens, R: int, L: int) -> dict:
+    """Warp instructions of ``rowmax_kernel`` over a batch, by class, from
+    the census of its row loop: instances paired (2p, 2p+1) in groups of
+    ``shape_for(R)`` lanes, 32 / lanes groups a warp; a warp runs its
+    longest read's rows with the columns a lane of its longest flank
+    (``row_census``) and flushes its tile every TILE_ROWS rows and once for
+    the rest (``flush_census``).  Left out, as in ``census_screen_ops``:
+    memory instructions, branches, the set-up and the output stores."""
+    lanes, cmax = shape_for(R)
+    if lanes == 0:
+        raise ValueError(f"flank width {R} exceeds the kernel's 1023")
+    per_warp = 2 * (WARP // lanes)
+    flanks, reads = (np.clip(np.asarray(a, np.int64), 0, hi)
+                     for a, hi in ((ref_lens, R), (read_lens, L)))
+    pad = (-len(flanks)) % per_warp
+    flanks, reads = (np.concatenate([a, np.zeros(pad, np.int64)])
+                     .reshape(-1, per_warp) for a in (flanks, reads))
+    cols = np.maximum(1, -(-(flanks.max(axis=1) + 1) // lanes))
+    rows = reads.max(axis=1)
+    total = dict.fromkeys(CLASSES, 0)
+    shapes, counts = np.unique(np.stack([cols, rows], axis=1), axis=0,
+                               return_counts=True)
+    for (C, n), times in zip(shapes.tolist(), counts.tolist()):
+        row = row_census(C, lanes, cmax, "rowmax_kernel")["total"]
+        full, rest = divmod(n, TILE_ROWS)
+        flush = flush_census(lanes)["total"]
+        tail = flush_census(lanes, rest)["total"] if rest else {}
+        for k in CLASSES:
+            total[k] += times * (n * row[k] + full * flush[k]
+                                 + tail.get(k, 0))
+    return {"lanes": lanes, "warps": int(len(cols)), "instructions": total}
+
+
+def census_ms(instructions: dict, cost: dict) -> float:
+    """Milliseconds of ``instructions`` (warp instructions by class) at
+    ``cost`` (card-wide ns per warp instruction by class): the time the
+    card takes to issue them if no two classes share a cycle."""
+    return sum(n * cost[k] for k, n in instructions.items()) / 1e6
 
 
 def mix_census(mix: str) -> dict:
@@ -564,16 +612,17 @@ def sass_loops(text: str, innermost: bool = True) -> dict:
     return out
 
 
-def screen_row_loops(text: str) -> dict:
-    """The row loops of each ``screen_kernel<CMAX, LANES>``, one per
-    column count C of its switch: ``{(lanes, cmax): {C: loop}}``.  A row
-    loop is a loop with warp shuffles outside its nested loops (the tile
-    flush's reduction); its ``per_row`` counts leave the nested loops
-    out.  The scan's shuffles (log2(lanes) + 1 a row) give the rows per
-    trip, and the three ``VIADDMNMX`` a column give C."""
+def row_loops(text: str, kernel: str = "screen_kernel") -> dict:
+    """The row loops of each ``<kernel><CMAX, LANES>`` (``screen_kernel``
+    or ``rowmax_kernel``, which run the same ``dp_rows``), one per column
+    count C of its switch: ``{(lanes, cmax): {C: loop}}``.  A row loop is a
+    loop with warp shuffles outside its nested loops (the tile flush's
+    reduction); its ``per_row`` counts leave the nested loops out.  The
+    scan's shuffles (log2(lanes) + 1 a row) give the rows per trip, and
+    the three ``VIADDMNMX`` a column give C."""
     out: dict[tuple, dict] = {}
     for name, loops in sass_loops(text, innermost=False).items():
-        m = re.search(r"screen_kernelILi(\d+)ELi(\d+)E", name)
+        m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)E", name)
         if not m:
             continue
         cmax, lanes = int(m.group(1)), int(m.group(2))

@@ -1,9 +1,15 @@
 """Split-read DP on the card: wrappers around ``csrc/split_dp.cu``.
 
-Counterpart of ``defuse_tpu/ops/split_dp_pallas.py``.  Two entries:
+Counterpart of ``defuse_tpu/ops/split_dp_pallas.py`` and of the XLA
+program ``defuse_tpu/ops/split_dp_batch.py::dp_tie_columns``.  Three
+entries:
 
 * ``dp_row_maxima_cuda`` — rowmax (B, L+1) int32 for per-instance flanks,
-  like ``dp_row_maxima_pallas``;
+  like ``dp_row_maxima_pallas``; two instances share a lane group of as
+  many lanes as the screen gives the table's width;
+* ``dp_tie_columns_cuda`` — for the rows each instance selects, the
+  anchored row max and the bit-packed columns that reach it, like
+  ``dp_tie_columns``; the DP runs only to the largest row a warp selects;
 * ``screen_candidates`` — the fused candidate screen, like
   ``screen_candidates_pallas``: one launch gathers the flanks by
   ``ref_idx`` from the uint8 unique-flank tables, reverses each read by
@@ -33,12 +39,15 @@ from ._build import bind, check_operand, cuda_device
 MAX_COLS = 1024  # R+1 bound: 32 lanes x 32 columns in registers
 MAX_READ = 1024  # L bound: DP values stay inside int16 (+-2 * MAX_READ * 3)
 
-LAUNCHES = {"split_dp_rowmax": 0, "split_dp_screen": 0}
+LAUNCHES = {"split_dp_rowmax": 0, "split_dp_screen": 0,
+            "split_dp_tie_columns": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
     "split_dp_rowmax": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "split_dp_tie_columns": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                             _I, _I, _P],
     "split_dp_screen": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I,
                         _I, _I, _I, _I, _P],
 }
@@ -66,11 +75,9 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def dp_row_maxima_cuda(refs, ref_lens, reads, read_lens):
-    """rowmax (B, L+1) int32 of the split DP; see
-    ``split_dp_batch.dp_row_maxima``."""
-    if refs.device.type == "cpu":
-        return split_dp_batch.dp_row_maxima(refs, ref_lens, reads, read_lens)
+def _instances(refs, ref_lens, reads, read_lens):
+    """Check the per-instance operands on their CUDA device; (device, B, R,
+    L)."""
     dev = cuda_device(refs, "split-DP")
     check_operand("refs", refs, torch.uint8, 2, dev)
     check_operand("ref_lens", ref_lens, torch.int32, 1, dev)
@@ -82,6 +89,15 @@ def dp_row_maxima_cuda(refs, ref_lens, reads, read_lens):
             or read_lens.shape[0] != B:
         raise ValueError("batch sizes differ")
     _check_widths(R, L)
+    return dev, B, R, L
+
+
+def dp_row_maxima_cuda(refs, ref_lens, reads, read_lens):
+    """rowmax (B, L+1) int32 of the split DP; see
+    ``split_dp_batch.dp_row_maxima``."""
+    if refs.device.type == "cpu":
+        return split_dp_batch.dp_row_maxima(refs, ref_lens, reads, read_lens)
+    dev, B, R, L = _instances(refs, ref_lens, reads, read_lens)
     out = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):
@@ -89,6 +105,32 @@ def dp_row_maxima_cuda(refs, ref_lens, reads, read_lens):
                     R, reads.data_ptr(), read_lens.data_ptr(), L,
                     out.data_ptr(), B)
     return out
+
+
+def dp_tie_columns_cuda(refs, ref_lens, reads, read_lens, row_sel):
+    """(rowmax (B, M) int32, packed (B, M, ceil((R+1)/32)) int32) of the
+    rows ``row_sel`` (B, M) int32 selects; see
+    ``split_dp_batch.dp_tie_columns``, whose bytes it returns.  Rows read
+    the characters of ``reads`` as stored, pad included, as the plain
+    version does, so the kernel has no use for ``read_lens``."""
+    if refs.device.type == "cpu":
+        return split_dp_batch.dp_tie_columns(refs, ref_lens, reads,
+                                             read_lens, row_sel)
+    dev, B, R, L = _instances(refs, ref_lens, reads, read_lens)
+    check_operand("row_sel", row_sel, torch.int32, 2, dev)
+    if row_sel.shape[0] != B:
+        raise ValueError("row_sel: batch sizes differ")
+    M = row_sel.shape[1]
+    W = (R + 1 + 31) // 32
+    rowmax = torch.empty((B, M), dtype=torch.int32, device=dev)
+    packed = torch.empty((B, M, W), dtype=torch.int32, device=dev)
+    if B and M:
+        with torch.cuda.device(dev):
+            _launch("split_dp_tie_columns", refs.data_ptr(),
+                    ref_lens.data_ptr(), R, reads.data_ptr(), L,
+                    row_sel.data_ptr(), M, rowmax.data_ptr(),
+                    packed.data_ptr(), B)
+    return rowmax, packed
 
 
 def screen_candidates(uref1, ulen1, uref2r, ulen2, ref_idx, reads,

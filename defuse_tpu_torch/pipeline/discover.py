@@ -13,7 +13,7 @@ and byte-identical artifacts, on both of its routes:
   oracle with ``em_mode="oracle"`` or ``use_device=False``) and the
   realign is ``align/batch_realign``: DP row maxima from
   ``ops/split_dp_cuda.dp_row_maxima_cuda``, tie columns from
-  ``ops/split_dp_batch.dp_tie_columns``.
+  ``ops/split_dp_cuda.dp_tie_columns_cuda``.
 
 The device stages run as CUDA kernels (``device="cuda"``) or, only when
 ``device="cpu"`` is passed or ``use_device`` is false, as their plain

@@ -558,6 +558,48 @@ def edge_case(name, seed=11):
     return (refs, rl, reads, ql), screen
 
 
+def tie_rows(read_lens, L, M, seed=0):
+    """(B, M) int32 rows for ``dp_tie_columns`` holding every edge that the
+    plain version defines, dealt round each instance's slots: the read's
+    last row, the row past it, L, the all-zero row 0, an unused slot (-1),
+    the first of these again (a duplicate), and random rows in [-1, L]."""
+    rng = np.random.default_rng(seed)
+    ql = np.asarray(read_lens, np.int32)
+    B = len(ql)
+    sel = rng.integers(-1, L + 1, (B, M)).astype(np.int32)
+    b = np.arange(B)
+    edges = (ql, np.minimum(ql + 1, L), np.full(B, L), np.zeros(B, np.int32),
+             np.full(B, -1), ql)
+    for k, rows in enumerate(edges[:M]):
+        sel[b, (b + k) % M] = rows
+    return sel
+
+
+def tie_boundary_case(R=70, L=40, seed=5):
+    """Tie-column inputs (refs, ref_lens, reads, read_lens) whose last DP
+    column falls on either side of a 32-column word (flanks of 30, 31, 32,
+    62, 63 and 64 bases), with runs of one base for flank and read, so
+    that a row reaches its max at every column from the row on, across the
+    words' edges; then flanks of 0, 5 and R and random codes with planted
+    substrings.  Past each length the codes go on (the DP reads them)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref_lens = np.array([30, 31, 32, 62, 63, 64, 31, 63, 0, 5, R, R, 40, 50],
+                        np.int32)
+    B = len(ref_lens)
+    refs = np.full((B, R), ord("A"), np.uint8)
+    reads = np.full((B, L), ord("A"), np.uint8)
+    read_lens = rng.integers(1, L + 1, B).astype(np.int32)
+    read_lens[:8] = (20, 31, 32, 33, L, 12, 31, 32)
+    for b in range(11, B):
+        refs[b] = acgt[rng.integers(0, 4, R)]
+        reads[b] = acgt[rng.integers(0, 4, L)]
+        n = min(int(ref_lens[b]), int(read_lens[b]))
+        s = int(rng.integers(0, ref_lens[b] - n + 1))
+        reads[b, :n] = refs[b, s:s + n]
+    return refs, ref_lens, reads, read_lens
+
+
 def verify_case(seed=7, n_ref=5003, L=53, B=64, C=4096):
     """Packed-verify inputs (codes, starts, reads, read_idx, read_lens):
     codes 0..4 with N (4) runs on both sides of candidates, every lane,

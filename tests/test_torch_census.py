@@ -41,6 +41,41 @@ def test_row_census_pinned(C):
         sc.row_census(16, 32)["total"]["alu"] + sc.RECOMPUTED[32, 16, 16]
 
 
+@pytest.mark.parametrize("key", sorted(sc.RECOMPUTED_ROWMAX))
+def test_rowmax_row_census_pinned(key):
+    """``rowmax_kernel`` runs ``dp_rows`` as the screen does, at the same
+    shapes, so its rows count what the screen's count, but for the row
+    loops where nvcc recomputes more (read from its SASS)."""
+    lanes, cmax, C = key
+    for c in range(1, cmax + 1):
+        base = sc.row_census(c, lanes)["total"]
+        got = sc.row_census(c, lanes, cmax, "rowmax_kernel")["total"]
+        extra = sc.RECOMPUTED_ROWMAX.get((lanes, cmax, c), 0)
+        assert got == dict(base, alu=base["alu"] + extra)
+    assert sc.RECOMPUTED_ROWMAX[key] > 0
+
+
+def test_census_rowmax_counts_warps_of_pairs():
+    """R 256: groups of 16 lanes, two pairs of instances a warp; a warp
+    runs its longest read with the columns of its longest flank, and the
+    last warp's missing instances count as empty."""
+    ref_lens = [200, 100, 50, 0, 175, 175]
+    read_lens = [50, 20, 64, 10, 33, 0]
+    c = sc.census_rowmax(ref_lens, read_lens, 256, 64)
+    assert (c["lanes"], c["warps"]) == (16, 2)
+    want = dict.fromkeys(sc.CLASSES, 0)
+    for C, n in ((13, 64), (11, 33)):  # ceil(201 / 16), ceil(176 / 16)
+        row = sc.row_census(C, 16, 18, "rowmax_kernel")["total"]
+        flushes = [sc.flush_census(16)["total"]] * (n // 32) + \
+            [sc.flush_census(16, n % 32)["total"]] * (n % 32 > 0)
+        for k in sc.CLASSES:
+            want[k] += n * row[k] + sum(f[k] for f in flushes)
+    assert c["instructions"] == want
+    cost = {"alu": 1.0, "dpx": 2.0, "shfl": 2.0, "redux": 6.0}
+    assert sc.census_ms(want, cost) == sum(
+        want[k] * cost[k] for k in sc.CLASSES) / 1e6
+
+
 @pytest.mark.parametrize("R,C", [(3, 1), (127, 16), (128, 9), (255, 16),
                                  (256, 17), (511, 16), (512, 17),
                                  (1023, 32)])
@@ -279,7 +314,7 @@ def test_sass_loops_reads_label_targets_and_innermost_loops():
     assert outer["counts"] == {"alu": 1, "dpx": 0, "shfl": 2, "redux": 1,
                                "mem": 0, "control": 1}
     # no loop here has the six shuffles a row of a 32-lane group needs
-    assert sc.screen_row_loops(text) == {(32, 16): {}}
+    assert sc.row_loops(text) == {(32, 16): {}}
 
 
 def row_body(C):
@@ -298,7 +333,7 @@ def test_screen_row_loops_per_row_counts():
         "VIMNMX3.S16x2 R9, R9, R11, R12, PT", "@P2 BRA 0xf0",
         "ISETP.NE.AND P1, PT, R2, R7, PT", "@P1 BRA 0x10",
         *row_body(1), "@P1 BRA 0x140", "EXIT"])
-    rows = sc.screen_row_loops(text)[32, 16]
+    rows = sc.row_loops(text)[32, 16]
     assert sorted(rows) == [1, 2]
     assert rows[2]["rows_per_trip"] == 1 and rows[2]["nested"] == 1
     assert rows[2]["per_row"] == {"alu": 2.0, "dpx": 6.0, "shfl": 6.0,

@@ -174,7 +174,8 @@ def test_port_auto_screen_follows_the_link(dataset, jax_host, monkeypatch,
     assert counters.get("screen_candidates", 0) == (
         len(screened[0][5]) if screened else 0)
     assert split_dp_cuda.LAUNCHES == {"split_dp_rowmax": 0,
-                                      "split_dp_screen": 0}
+                                      "split_dp_screen": 0,
+                                      "split_dp_tie_columns": 0}
     assert f"[discover] screen: {choice} wins (est dev " in \
         capsys.readouterr().out
     for name in ARTIFACTS:

@@ -48,9 +48,11 @@ DIVERGED = {
         ("SingleAlignment", "index_paired_fastq", "_align_all",
          "_align_all_native", "align_job")),
     "align/batch_realign.py": (
-        "the screen goes to ops/split_dp_cuda.screen_candidates, and "
+        "the screen goes to ops/split_dp_cuda.screen_candidates, "
         "realign_candidates and _device_tie_columns take the device their "
-        "torch operands go to (convert.tie_operands)",
+        "torch operands go to (convert.tie_operands), and the tie columns "
+        "go to ops/split_dp_cuda.dp_tie_columns_cuda: the hand kernel on a "
+        "CUDA device, the plain version on the CPU",
         ("Candidate", "collect_candidates", "_np_rows",
          "collect_candidates_native", "_native_rows",
          "realign_candidates_native", "_columns", "_pad_len")),

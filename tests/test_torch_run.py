@@ -183,7 +183,8 @@ discover_fusions(
 if package != "defuse_tpu":
     assert len(calls) == 2 and calls[0] == calls[1] > 0, calls
     assert split_dp_cuda.LAUNCHES == dict(split_dp_rowmax=0,
-                                          split_dp_screen=0)
+                                          split_dp_screen=0,
+                                          split_dp_tie_columns=0)
     assert "jax" not in sys.modules and "defuse_tpu" not in sys.modules
 print("DISCOVER_OK")
 """

@@ -22,7 +22,7 @@ from defuse_tpu_torch.ops.split_dp_batch import (combine_split_scores,
                                                  screen_candidates_ref)
 
 from torch_cases import (EDGE_CASES, SWEEP, edge_case, rand_seq, screen_case,
-                         sweep_inputs, tensors)
+                         sweep_inputs, tensors, tie_rows)
 
 
 @pytest.mark.parametrize("R,L", SWEEP)
@@ -154,14 +154,41 @@ def test_screen_min_scores_are_accept_thresholds(lens):
         got, np.array([accept_threshold(n) for n in lens], dtype=np.int32))
 
 
+@pytest.mark.parametrize("seed", [7, 8, 9])
+@pytest.mark.parametrize("R,L", SWEEP)
+def test_reordered_rowmax_put_back_equals_original(R, L, seed):
+    """The batch sorted by read length and then flank length (the order in
+    which like lengths would share the kernel's lane groups; the kernel's
+    own test on the card runs it): its plain row maxima, put back, equal
+    the batch's own and the JAX DP's, and the wrapper on CPU tensors gives
+    the same rows without a launch."""
+    refs, rl, reads, ql = sweep_inputs(R, L, seed=seed)
+    order = np.lexsort((rl, ql))
+    want = dp_row_maxima(*tensors(refs, rl, reads, ql)).numpy()
+    got = dp_row_maxima(*tensors(refs[order], rl[order], reads[order],
+                                 ql[order])).numpy()
+    back = np.empty_like(got)
+    back[order] = got
+    np.testing.assert_array_equal(back, want)
+    np.testing.assert_array_equal(
+        want, np.asarray(jax_batch.dp_row_maxima(refs, rl, reads, ql)))
+    split_dp_cuda.reset_launches()
+    np.testing.assert_array_equal(split_dp_cuda.dp_row_maxima_cuda(
+        *tensors(refs[order], rl[order], reads[order], ql[order])), got)
+    assert split_dp_cuda.LAUNCHES["split_dp_rowmax"] == 0
+
+
 def test_cpu_screen_launches_no_kernel():
     split_dp_cuda.reset_launches()
     ops = screen_operands(*screen_case(), "cpu")
     split_dp_cuda.screen_candidates(*ops)
     refs, rl, reads, ql = tensors(*sweep_inputs(60, 24))
     split_dp_cuda.dp_row_maxima_cuda(refs, rl, reads, ql)
+    split_dp_cuda.dp_tie_columns_cuda(
+        refs, rl, reads, ql, torch.from_numpy(tie_rows(ql.numpy(), 24, 3)))
     assert split_dp_cuda.LAUNCHES == {"split_dp_rowmax": 0,
-                                      "split_dp_screen": 0}
+                                      "split_dp_screen": 0,
+                                      "split_dp_tie_columns": 0}
 
 
 def test_cuda_without_cuda_raises():
@@ -179,6 +206,9 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     meta = [t.to("meta") for t in tensors(*sweep_inputs(60, 24))]
     with pytest.raises(ValueError, match="CUDA"):
         split_dp_cuda.dp_row_maxima_cuda(*meta)
+    sel = torch.zeros((16, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        split_dp_cuda.dp_tie_columns_cuda(*meta, sel)
 
 
 @pytest.mark.parametrize("field,value", [
