@@ -6,7 +6,7 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: nvidia-smi name and power limit, CUDA version; CUDA is required;
-2. build: the native host library and the three CUDA kernels, from
+2. build: the native host library and the four CUDA sources, from
    source (one ``nvcc`` each, all started together);
 3. kernel = plain version, exactly, for the screen, the row maxima (the
    batch as made and sorted by length, so that other instances share each
@@ -72,23 +72,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    instructions (``split_dp_census.census_rowmax``) priced at the probe's
    rates; then a second child on the same input with
    ``em_mode="device"``, the batched EM on the card in place of the Python
-   oracle: the same bytes again, ``em_impl == "cuda"``, and its ``cluster``
-   stage's seconds beside the oracle child's;
+   oracle: the same bytes again, ``em_impl == "cuda"``, ``em_rows_kernel``
+   launched and the plain EM loop run on no CUDA tensor, and its
+   ``cluster`` stage's seconds beside the oracle child's;
 11. ``cohort``: the bench reads dealt out into two libraries, through
    ``cli.main.main(["cohort", ...])`` with two workers sharing the card;
    both libraries ``ok``, ``cohort_fusions.tsv`` not empty;
 12. the batched EM at the bench dataset's width: every bin pair of its
    ``spanning`` file through ``prepare_batch`` and ``run_batch`` on the
-   card, in float64 and in float32 with the exact re-solve, each held
-   membership for membership to ``native.em_cluster_batch`` (the exact
-   answer) on the same instances and to the same call on CPU tensors; two
-   runs of each type must give the same bits of ``a``, ``b``, ``ll``.
-   Prints rows, widest N, slabs, segments, iterations, row-iterations run
-   and live, the seconds of prepare, device and select, the native EM's
-   seconds, the instances re-solved on the host, peak device memory, and
-   from one ``torch.profiler`` pass over a segment of the whole batch the
-   kernel launches an iteration and the device's busy share.  The EM is
-   plain PyTorch: it has no entry in the ``kernels`` line;
+   card (``em_rows_kernel``, one launch a slab segment, counted against
+   the slabs x segments), in float64 and in float32 with the exact
+   re-solve, each held membership for membership to
+   ``native.em_cluster_batch`` (the exact answer) on the same instances,
+   and in float64 to the plain loop's run on the card and to the run on
+   CPU tensors; two runs of each type, one launch at the padded width and
+   the run in one segment must give the bucketed run's bits of ``a``,
+   ``b``, ``ll``, ``ok``; the kernel against the plain loop on the whole
+   batch in float64: ``a`` and ``b`` within 1e-4 bases and ``ll`` within
+   1e-9 relative on rows with the same ``ok`` and ``it_done``.  Prints
+   rows, widest N, slabs, segments, iterations, row-iterations run and
+   live, the seconds of prepare, the runs and select, the native EM's and
+   the plain loop's seconds, the instances re-solved on the host, peak
+   device memory, and from ``torch.profiler`` the kernel's device time
+   (the whole batch in one launch, and inside ``run_em``), the launches a
+   call and the device's busy share;
 13. the multi-process path: ``defuse_tpu_torch.entry.entry()`` on the card
    (``rowmax_kernel``) equal to ``entry(device="cpu")`` bit for bit, and
    timed; the phase-9 dataset dealt into two fastq shards and run on two
@@ -100,7 +107,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``splitreads.break`` byte-identical to one process's ``run`` on the same
    inputs; each rank's backend, world size, device, seconds and stages;
    then ``dryrun_multichip(2)`` with both ranks on the card, its sharded
-   real discover byte-identical to the one-process run.  Every rank is a
+   real discover byte-identical to the one-process run, ``em_rows_kernel``
+   launched on each rank.  Every rank is a
    child process with a limit; one that fails or runs over fails the
    phase;
 14. routing: discover with the screen forced and off, alternated
@@ -117,9 +125,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    route against the route measured faster: the phase fails only where the
    model picks the slower route by more than the measured spread.
 
-All kernel comparisons are exact (integer results; tolerance 0).  Each
-kernel's bound is the larger of its least bytes over the card's memory
-rate and its least operations at the probe's measured issue rates; the
+All comparisons of the integer kernels are exact (tolerance 0); the EM
+kernel's is stated in phase 12.  Each integer kernel's bound is the larger
+of its least bytes over the card's memory rate and its least operations at
+the probe's measured issue rates, the EM's its least fp64 operations at the
+data sheet's rate (``em_bound``); the
 verify's is printed for each of its shapes, beside the same bytes counted
 in 32 B sectors.  Prints a line of each kernel's time, launches and bound,
 a JSON line of the EM, multi-process and routing records, a JSON line of
@@ -161,7 +171,7 @@ TRUE_FRACTION = 0.05
 MIN_SIDE = 20
 
 
-KERNEL_SOURCES = ("split_dp", "verify", "issue_probe")
+KERNEL_SOURCES = ("split_dp", "verify", "issue_probe", "em")
 
 
 def timed_build(name):
@@ -1097,8 +1107,9 @@ def no_native_child(work, device, em_mode):
     their plain versions and timed on the route's own operands, and the
     tie columns on ``device`` against the same call on CPU tensors.  For
     the batched EM: what ``metrics.discover.json`` says of it."""
+    from defuse_tpu_torch.cluster import matepair_em_batch as em
     from defuse_tpu_torch.cluster import native
-    from defuse_tpu_torch.ops import split_dp_batch, split_dp_cuda
+    from defuse_tpu_torch.ops import em_cuda, split_dp_batch, split_dp_cuda
     from defuse_tpu_torch.ops.split_dp_census import census_rowmax
     from defuse_tpu_torch.pipeline import discover
     check(not native.available(), "the child has the native library")
@@ -1123,12 +1134,13 @@ def no_native_child(work, device, em_mode):
     for name in plain:
         setattr(split_dp_batch, name, watched(name))
     split_dp_cuda.reset_launches()
+    em_cuda.reset_launches()
     outdir = work / NO_NATIVE_OUT[em_mode]
     t0 = time.time()
     discover.discover_fusions(outdir=str(outdir), device=device,
                               em_mode=em_mode, **discover_kwargs(paths))
     seconds = time.time() - t0
-    launches = dict(split_dp_cuda.LAUNCHES)
+    launches = dict(split_dp_cuda.LAUNCHES) | em_cuda.LAUNCHES
     for name, fn in plain.items():
         setattr(split_dp_batch, name, fn)
     check(len(seen["rowmax"]) == 1 and len(seen["tie"]) == 2,
@@ -1142,7 +1154,14 @@ def no_native_child(work, device, em_mode):
               f"a plain version ran {seen['plain_on_card']} times on the card")
     check_no_reference_modules()
     if em_mode == "device":
-        print(json.dumps({"seconds": seconds, "launches": launches}),
+        if device == "cuda":
+            check(launches["em_rows_kernel"] > 0,
+                  "em_mode=device: em_rows_kernel never launched")
+            check(em.PLAIN_RUNS["cuda"] == 0,
+                  f"the plain EM ran {em.PLAIN_RUNS['cuda']} times on the "
+                  "card")
+        print(json.dumps({"seconds": seconds, "launches": launches,
+                          "plain_em_on_card": em.PLAIN_RUNS["cuda"]}),
               flush=True)
         return 0
 
@@ -1211,6 +1230,11 @@ def no_native_device_em(card, cut, device, recs):
           "no-native, device EM: the batched EM ran on nothing")
     check(recs["device"]["launches"]["split_dp_rowmax"] >= 1,
           "no-native, device EM: rowmax kernel never launched")
+    check(device != "cuda" or (recs["device"]["launches"]["em_rows_kernel"]
+                               > 0 and recs["device"]["plain_em_on_card"]
+                               == 0),
+          f"no-native, device EM: {recs['device']['launches']}, plain EM "
+          f"on the card {recs['device']['plain_em_on_card']} times")
     say(card, f"no-native discover with em_mode=device "
               f"(em_impl {counters['em_impl']}): "
               f"{recs['device']['seconds']:.3f} s against "
@@ -1221,8 +1245,10 @@ def no_native_device_em(card, cut, device, recs):
               f"n_host_resolved "
               f"{counters['em_select']['n_host_resolved']}; "
               f"{len(ARTIFACTS)} artifacts byte-identical to the oracle "
-              f"child's and the native route's; EM run stats "
-              f"{counters['em_run']}")
+              f"child's and the native route's; em_rows_kernel launches "
+              f"{recs['device']['launches']['em_rows_kernel']}, the plain "
+              f"EM on the card {recs['device']['plain_em_on_card']} times; "
+              f"EM run stats {counters['em_run']}")
     recs["device"].update(cluster_s=stage_s["device"]["cluster"],
                           oracle_cluster_s=stage_s["oracle"]["cluster"],
                           em_select=counters["em_select"],
@@ -1358,57 +1384,85 @@ def same_bits(a, b):
     return a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-def em_segment_profile(batch, params, dev):
-    """One ``torch.profiler`` pass over one segment of the EM on the whole
-    batch at its padded width: (kernel launches an iteration, the device's
-    busy share of the span from its first kernel to its last, iterations,
-    unprofiled milliseconds an iteration).  The launches of the set-up
-    before the loop (a profiled run of no iterations) are taken off.
-    (None, None, ...) where the profiler records no device event."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from defuse_tpu_torch.cluster import matepair_em_batch as em
-    run = em.make_em_step(params.fragment_stddev)
-    ops = [torch.as_tensor(v, dtype=torch.float64, device=dev)
-           for v in (batch.x, batch.y, batch.u)] + \
+def em_operands(batch, dtype, dev):
+    """``em_run``'s operands of the whole batch at its padded width."""
+    return [torch.as_tensor(v, dtype=dtype, device=dev)
+            for v in (batch.x, batch.y, batch.u)] + \
         [torch.as_tensor(batch.n, device=dev),
          torch.as_tensor(batch.k, device=dev),
-         torch.as_tensor(batch.r0, dtype=torch.float64, device=dev)]
+         torch.as_tensor(batch.r0, dtype=dtype, device=dev)]
 
-    def traced(max_iters):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            iters = run(*ops, max_iters=max_iters)[5]
-            torch.cuda.synchronize()
-        spans = [(e.time_range.start, e.time_range.end)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA]
-        return iters, spans
 
-    run(*ops, max_iters=2)  # load every kernel before anything is timed
-    torch.cuda.synchronize()
-    t0 = time.time()
-    iters = run(*ops, max_iters=em.SEGMENT_ITERS)[5]
-    torch.cuda.synchronize()
-    ms_iter = (time.time() - t0) * 1e3 / iters
-    _none, setup = traced(0)
-    iters, spans = traced(em.SEGMENT_ITERS)
+def em_profiled(fn):
+    """One ``torch.profiler`` pass over ``fn()``: the device time of its
+    ``em_rows_kernel`` launches (ms) and their count, all its kernel
+    launches, the device's busy share from its first kernel to its last,
+    and its wall (ms, to the last synchronise).  Device figures are None
+    where the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel = [(s, e) for name, s, e in spans if "em_rows_kernel" in name]
     if not spans:
-        return None, None, iters, ms_iter
-    busy = sum(end - start for start, end in spans) / (
-        max(end for _s, end in spans) - min(start for start, _e in spans))
-    return (len(spans) - len(setup)) / iters, busy, iters, ms_iter
+        return {"kernel_ms": None, "kernel_launches": None,
+                "launches": None, "busy": None, "wall_ms": wall}
+    first = min(s for _n, s, _e in spans)
+    last = max(e for _n, _s, e in spans)
+    return {"kernel_ms": sum(e - s for s, e in kernel) / 1e3,
+            "kernel_launches": len(kernel), "launches": len(spans),
+            "busy": sum(e - s for _n, s, e in spans) / (last - first),
+            "wall_ms": wall}
+
+
+# the EM's operations a live row-iteration, as the bound counts them (each
+# add, multiply, divide, compare, exp and log one fp64 operation): an
+# exponent term (point x component: the exponent's 15, its max, the weighted
+# density's subtract, exp and multiply, the sum, the responsibility's
+# divide), a term of the M-step's two sums (x + y + u, the product and two
+# adds), and a step of the merge (x + y, the product, the difference, the
+# divide, lam x sum, the add, the compare, the running sum)
+EM_OPS_TERM, EM_OPS_SUMS, EM_OPS_STEP = 21, 5, 8
+FP64_OPS_S = 34e12  # H100 SXM, fp64 outside the tensor cores (data sheet)
+
+
+def em_bound(batch, it_done, itemsize):
+    """(bytes, least ops, ops with every merge walked to its end) of the
+    whole batch run to its end: each operand read once and each output
+    written once; per live row-iteration k*n exponent terms and sum terms
+    and one merge step a component (how far a merge walks depends on the
+    data and is not measured: at most 2n steps)."""
+    B, KM, N = batch.r0.shape
+    live = np.minimum(it_done, 300).astype(np.float64)
+    kn = live * batch.k * batch.n
+    least = float((kn * (EM_OPS_TERM + EM_OPS_SUMS)
+                   + live * batch.k * EM_OPS_STEP).sum())
+    most = least + float((kn * 2 * EM_OPS_STEP).sum())
+    work = (3 * B * N + 2 * B * KM * N + 5 * B * KM + 2 * B) * itemsize \
+        + B * (4 + 4 + 1 + 1 + 4)
+    return work, least, most
 
 
 def phase_em(card, dataset, dev):
+    from unittest import mock
+
     from defuse_tpu_torch.cluster import matepair_em_batch as em
     from defuse_tpu_torch.cluster import native
     from defuse_tpu_torch.cluster.discordant import collect_bin_pair_tasks
     from defuse_tpu_torch.cluster.matepair_em import EMParams
     from defuse_tpu_torch.io.sam import iter_compact, load_alignments
+    from defuse_tpu_torch.ops import em_cuda
     from defuse_tpu_torch.utils import synth
 
     _ds, paths, _n_pairs = dataset
     params = EMParams(synth.MEAN, synth.STD, synth.PREC, synth.MINCL)
+    sigma = params.fragment_stddev
     tasks = collect_bin_pair_tasks(
         load_alignments(iter_compact(str(paths["spanning"]))), params)
     instances = [(t.x, t.y, t.u) for t in tasks]
@@ -1430,6 +1484,11 @@ def phase_em(card, dataset, dev):
                                f"{len(instances[i][0])}) has {mine}, the "
                                f"native EM {exp}")
 
+    def plain():
+        """``em_run`` as the plain loop, for the comparison runs only."""
+        return mock.patch.object(em, "_build_em_run",
+                                 em._build_em_run_plain)
+
     rec = {"instances": len(instances), "rows": int(len(batch.n)),
            "max_n": int(batch.n.max()), "native_s": t_native,
            "prepare_s": t_prepare}
@@ -1437,9 +1496,23 @@ def phase_em(card, dataset, dev):
               f"instances, {rec['rows']} (instance, K) rows, widest N "
               f"{rec['max_n']}; native EM {t_native:.3f} s, prepare_batch "
               f"{t_prepare:.3f} s")
+    # the main path's call: run_batch on the card, its launches counted
+    em_cuda.reset_launches()
+    plain_before = em.PLAIN_RUNS["cuda"]
+    t0 = time.time()
+    got64 = em.run_batch(batch, params, device=dev)
+    rec["run_batch_s"] = time.time() - t0
+    rec["launches"] = em_cuda.LAUNCHES["em_rows_kernel"]
+    rec["run_batch_stats"] = dict(em.EM_RUN_STATS)
+    check(rec["launches"] == em.EM_RUN_STATS["slabs"] > 0
+          and em.PLAIN_RUNS["cuda"] == plain_before,
+          f"EM: {rec['launches']} em_rows_kernel launches for "
+          f"{em.EM_RUN_STATS['slabs']} slab segments, the plain loop "
+          f"{em.PLAIN_RUNS['cuda'] - plain_before} times on the card")
+    held(got64, "float64 on the card")
     for name, dtype in EM_DTYPES.items():
         runs = []
-        for _ in range(2):  # the first loads the kernels
+        for _ in range(2):
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.time()
             outs = em.run_em(batch, params, dtype, dev)
@@ -1448,6 +1521,20 @@ def phase_em(card, dataset, dev):
                          torch.cuda.max_memory_allocated(dev)))
         for x, y, what in zip(runs[0][1], runs[1][1], ("a", "b", "ll", "ok")):
             check(same_bits(x, y), f"EM {name}: two runs differ in {what}")
+        # one launch at the padded width, and the whole run in one segment
+        t0 = time.time()
+        whole = em.run_em(batch, params, dtype, dev, chunk_rows=0)
+        whole_s = time.time() - t0
+        with mock.patch.object(em, "SEGMENT_ITERS", em.MAX_ITERS):
+            t0 = time.time()
+            one_segment = em.run_em(batch, params, dtype, dev)
+            one_segment_s = time.time() - t0
+            one_segment_stats = dict(em.EM_RUN_STATS)
+        for label, other in (("one launch", whole),
+                             ("one segment", one_segment)):
+            for x, y, what in zip(runs[0][1], other, ("a", "b", "ll", "ok")):
+                check(same_bits(x, y), f"EM {name}: {label} differs from "
+                                       f"the bucketed run in {what}")
         t0 = time.time()
         got = em.run_batch(batch, params, dtype=dtype, device=dev)
         t_batch = time.time() - t0
@@ -1460,37 +1547,131 @@ def phase_em(card, dataset, dev):
             0, dtype=dtype).element_size()
         rec[name] = {
             "first_s": runs[0][0], "device_s": runs[1][0],
+            "one_launch_s": whole_s, "one_segment_s": one_segment_s,
+            "one_segment_stats": one_segment_stats,
             "select_s": t_batch - em.EM_RUN_STATS["wall_s"],
             "n_host_resolved": select["n_host_resolved"],
             "peak_bytes": runs[1][3],
             "peak_over_largest_slab": runs[1][3] / slab_bytes,
             "stats": stats}
-        say(card, f"EM {name} on the card: {runs[1][0]:.3f} s (first run "
-                  f"{runs[0][0]:.3f} s), select {rec[name]['select_s']:.3f} "
-                  f"s, n_host_resolved {select['n_host_resolved']} of "
-                  f"{select['n_instances']}; memberships == native on all "
-                  f"{len(want)} instances; two runs equal bit for bit; "
-                  f"{stats['groups']} groups, {stats['slabs']} slabs, "
-                  f"{stats['segments']} segments, {stats['iters']} "
-                  f"iterations, row-iterations {stats['row_iters_run']} run "
-                  f"/ {stats['row_iters_live']} live; peak device memory "
-                  f"{runs[1][3] / 1e6:.1f} MB, "
-                  f"{runs[1][3] / slab_bytes:.1f} times the largest slab's "
-                  f"(rows, K, N) tensor; run stats {stats}")
+        say(card, f"EM {name} on the card: run_em {runs[1][0]:.4f} s "
+                  f"(first run {runs[0][0]:.4f} s), one launch at the "
+                  f"padded width {whole_s:.4f} s, one segment "
+                  f"{one_segment_s:.4f} s ({one_segment_stats['slabs']} "
+                  f"launches); all three the same bits; select "
+                  f"{rec[name]['select_s']:.3f} s, n_host_resolved "
+                  f"{select['n_host_resolved']} of {select['n_instances']}; "
+                  f"memberships == native on all {len(want)} instances; two "
+                  f"runs equal bit for bit; {stats['groups']} groups, "
+                  f"{stats['slabs']} slabs x segments, {stats['segments']} "
+                  f"segments, {stats['iters']} iterations, row-iterations "
+                  f"{stats['row_iters_run']} run / {stats['row_iters_live']} "
+                  f"live; peak device memory {runs[1][3] / 1e6:.1f} MB; run "
+                  f"stats {stats}")
+
+    # the kernel against the plain loop on the card, float64, the whole
+    # batch in one call at its padded width
+    ops = em_operands(batch, torch.float64, dev)
+    kernel_out = em.make_em_step(sigma)(*ops)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_out = em._build_em_run_plain(sigma)(*ops)
+    torch.cuda.synchronize()
+    rec["plain_call_s"] = time.time() - t0
+    k_out, p_out = ([v.cpu().numpy() if torch.is_tensor(v) else v
+                     for v in out] for out in (kernel_out, plain_out))
+    same = (k_out[9] == p_out[9]) & (k_out[4] == p_out[4])
+    active = (np.arange(batch.r0.shape[1])[None, :] < batch.k[:, None]) \
+        & same[:, None]
+    d_ab = np.maximum(np.abs(k_out[0] - p_out[0]),
+                      np.abs(k_out[1] - p_out[1]))
+    d_ll = np.abs(k_out[3] - p_out[3]) / np.maximum(1.0, np.abs(p_out[3]))
+    rec["vs_plain"] = {
+        "max_abs_ab": float(d_ab[active].max()),
+        "max_rel_ll": float(d_ll[same].max()),
+        "rows_it_done_differ": int((k_out[9] != p_out[9]).sum()),
+        "rows_ok_differ": int((k_out[4] != p_out[4]).sum()),
+        "iters": [int(k_out[5]), int(p_out[5])]}
+    worst = int(np.argmax(np.where(active, d_ab, -1).max(axis=1)))
+    check(rec["vs_plain"]["max_abs_ab"] <= 1e-4
+          and rec["vs_plain"]["max_rel_ll"] <= 1e-9,
+          f"EM kernel against the plain loop: {rec['vs_plain']}; worst row "
+          f"{worst} (instance {batch.instance[worst]}, n {batch.n[worst]}, "
+          f"k {batch.k[worst]}): a {k_out[0][worst]} against "
+          f"{p_out[0][worst]}, b {k_out[1][worst]} against "
+          f"{p_out[1][worst]}, ll {k_out[3][worst]} against "
+          f"{p_out[3][worst]}")
+    # float32: only the decisions, ok on the rows that finished at the
+    # same iteration
+    ops32 = em_operands(batch, torch.float32, dev)
+    k32, p32 = ([v.cpu().numpy() if torch.is_tensor(v) else v
+                 for v in run(*ops32)]
+                for run in (em.make_em_step(sigma),
+                            em._build_em_run_plain(sigma)))
+    same32 = k32[9] == p32[9]
+    rec["vs_plain_float32"] = {
+        "rows_it_done_differ": int((~same32).sum()),
+        "rows_ok_differ_same_it": int((k32[4] != p32[4])[same32].sum()),
+        "rows_ok_differ": int((k32[4] != p32[4]).sum())}
+    check(rec["vs_plain_float32"]["rows_ok_differ_same_it"] == 0,
+          f"EM float32: ok differs from the plain loop on rows that "
+          f"finished at the same iteration: {rec['vs_plain_float32']}")
+    with plain():
+        t0 = time.time()
+        plain_batch = em.run_batch(batch, params, device=dev)
+        rec["plain_run_batch_s"] = time.time() - t0
+        rec["plain_stats"] = dict(em.EM_RUN_STATS)
+    held(plain_batch, "the plain loop, float64 on the card")
+    check(plain_batch == got64, "EM: the kernel's memberships differ from "
+                                "the plain loop's")
     t0 = time.time()
     held(em.run_batch(batch, params, device="cpu"), "float64 on CPU tensors")
     rec["cpu_s"] = time.time() - t0
-    launches, busy, iters, ms_iter = em_segment_profile(batch, params, dev)
-    rec.update(launches_per_iter=launches, busy_share=busy,
-               segment_ms_per_iter=ms_iter)
-    say(card, f"EM float64 on CPU tensors: {rec['cpu_s']:.3f} s, memberships "
-              f"== native; one segment of the whole batch ({rec['rows']} "
-              f"rows, K {batch.r0.shape[1]}, N {batch.x.shape[1]}, {iters} "
-              f"iterations): {ms_iter:.3f} ms an iteration; torch.profiler: "
-              + ("no device event recorded (launches and busy share not "
-                 "measured)" if launches is None else
-                 f"{launches:.1f} kernel launches an iteration, device busy "
-                 f"{100 * busy:.1f}% of the segment"))
+    say(card, f"EM float64 on CPU tensors (the plain loop): "
+              f"{rec['cpu_s']:.3f} s, memberships == native")
+    say(card, f"EM kernel against the plain loop on the card (float64, "
+              f"{rec['rows']} rows in one call): memberships equal (and "
+              f"== native); on rows with the same ok and it_done, max |a, b| "
+              f"difference {rec['vs_plain']['max_abs_ab']:.3e} bases, max "
+              f"relative ll difference {rec['vs_plain']['max_rel_ll']:.3e}; "
+              f"rows whose it_done differs "
+              f"{rec['vs_plain']['rows_it_done_differ']}, whose ok differs "
+              f"{rec['vs_plain']['rows_ok_differ']}; iterations "
+              f"{rec['vs_plain']['iters']} (kernel, plain); float32 "
+              f"{rec['vs_plain_float32']}")
+
+    # timings: the kernel alone (its device time in one profiled call of
+    # the whole batch, and in a profiled run_em), the calls' walls
+    em.make_em_step(sigma)(*ops)
+    one = em_profiled(lambda: em.make_em_step(sigma)(*ops))
+    bucketed = em_profiled(lambda: em.run_em(batch, params, torch.float64,
+                                             dev))
+    work, least, most = em_bound(batch, k_out[9], 8)
+    bound_ms, bound_by = bound(work, least / FP64_OPS_S * 1e3)
+    call_ms = time_ms(lambda: em.make_em_step(sigma)(*ops), 3)
+    rec.update(kernel_ms=one["kernel_ms"] or call_ms, call_ms=call_ms,
+               launches_per_call=one["launches"], busy_share=one["busy"],
+               run_em_profile=bucketed, plain_ms=rec["plain_call_s"] * 1e3,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=work,
+               ops_least=least, ops_most=most,
+               bound_most_ms=bound(work, most / FP64_OPS_S * 1e3)[0],
+               max_abs_err=rec["vs_plain"]["max_abs_ab"])
+    say(card, "EM timings, float64: " + (
+        "torch.profiler recorded no device event (kernel time not "
+        "measured)" if one["kernel_ms"] is None else
+        f"em_rows_kernel alone {one['kernel_ms']:.3f} ms for the whole "
+        f"batch in one launch ({one['launches']} device launches a call, "
+        f"busy {100 * one['busy']:.1f}%), the call {call_ms:.3f} ms "
+        f"(CUDA events); in run_em {bucketed['kernel_ms']:.3f} ms of kernel over "
+        f"{bucketed['kernel_launches']} launches in a wall of "
+        f"{bucketed['wall_ms']:.3f} ms (busy "
+        f"{100 * bucketed['busy']:.1f}%)") +
+        f"; the plain loop {rec['plain_call_s']:.3f} s a call, run_batch "
+        f"{rec['plain_run_batch_s']:.3f} s; native EM {t_native:.3f} s; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({work / 1e6:.2f} MB, "
+        f"{least:.3e} operations with one merge step a component; "
+        f"{rec['bound_most_ms']:.4f} ms with every merge walked to 2n "
+        f"steps)")
     return rec
 
 
@@ -1712,6 +1893,9 @@ def phase_dryrun(card, device):
     check(all(k >= 3 for k in rowmax) or device == "cpu",
           f"dryrun: rowmax_kernel launches by rank {rowmax}")
     tie = [r["launches"]["split_dp_tie_columns"] for r in ranks]
+    em_launches = [r["launches"]["em_rows_kernel"] for r in ranks]
+    check(all(k >= 2 for k in em_launches) or device == "cpu",
+          f"dryrun: em_rows_kernel launches by rank {em_launches}")
     say(card, f"dryrun_multichip(2): {rec['seconds']:.3f} s; ranks on "
               f"{[r['device'] for r in ranks]} ({ranks[0]['backend']}), "
               f"mesh {ranks[0]['mesh']['shape']}; step "
@@ -1720,9 +1904,11 @@ def phase_dryrun(card, device):
               f"{[round(r['sharded_s'], 3) for r in ranks]} s; "
               f"{ranks[0]['em_rows']} EM rows and "
               f"{ranks[0]['rowmax_instances']} row-maxima instances sharded; "
-              f"launches by rank: rowmax_kernel {rowmax}, tie_kernel {tie}")
+              f"launches by rank: rowmax_kernel {rowmax}, tie_kernel {tie}, "
+              f"em_rows_kernel {em_launches}")
     return {"seconds": rec["seconds"], "rowmax_launches": sum(rowmax),
-            "tie_launches": sum(tie), "ranks": ranks}
+            "tie_launches": sum(tie), "em_launches": sum(em_launches),
+            "ranks": ranks}
 
 
 # --- phase 14 ---------------------------------------------------------------
@@ -2178,6 +2364,32 @@ def main() -> int:
                   f"{k['bound_by']} ({100 * k['bound_ms'] / k['ms']:.1f}% of "
                   f"bound), wrapper call {k['call_ms']:.4f} ms, plain "
                   f"{k['plain_ms']:.3f} ms, max_abs_err {k['max_abs_err']}")
+    # the EM: its launches on each path that runs it on the card; its time
+    # the kernel alone on phase 12's whole batch (float64, one launch)
+    em_by_path = {
+        "no_native_device_em":
+            no_native["device_em"]["launches"]["em_rows_kernel"],
+        "run_batch": em_rec["launches"],
+        "dryrun": dryrun_rec["em_launches"]}
+    em_kernel = {
+        "name": "em_rows_kernel", "route": "cuda",
+        "source": "defuse_tpu_torch/csrc/em.cu",
+        "replaces": "defuse_tpu/cluster/matepair_em_batch.py:453",
+        "launches": sum(em_by_path.values()),
+        "launches_by_path": em_by_path,
+        "max_abs_err": em_rec["max_abs_err"], "ms": em_rec["kernel_ms"],
+        "plain_ms": em_rec["plain_ms"], "bound_ms": em_rec["bound_ms"],
+        "bound_by": em_rec["bound_by"], "library_ms": None,
+        "call_ms": em_rec["call_ms"], "rows": em_rec["rows"],
+        "bound_most_ms": em_rec["bound_most_ms"]}
+    say(card, f"em_rows_kernel: launches by path {em_by_path}; the whole "
+              f"batch ({em_rec['rows']} rows) in one launch "
+              + (f"{em_rec['kernel_ms']:.3f} ms, bound "
+                 f"{em_rec['bound_ms']:.4f} ms by {em_rec['bound_by']} "
+                 f"({100 * em_rec['bound_ms'] / em_rec['kernel_ms']:.2f}% "
+                 f"of bound)" if em_rec["kernel_ms"] else "not measured")
+              + f", the plain loop {em_rec['plain_ms']:.1f} ms; max |a, b| "
+              f"difference {em_rec['max_abs_err']:.3e}")
     say(card, f"screen at scale: {scale_ms:.3f} ms, bound {scale_bound:.3f} "
               f"ms ({100 * scale_bound / scale_ms:.1f}% of bound, "
               f"{scale_work['cells']} cells)")
@@ -2212,9 +2424,9 @@ def main() -> int:
         "launches": probe_launches["issue_probe"],
         "max_abs_err": err_probe, "ms": probe_ms,
         "plain_ms": probe_plain_ms, "bound_ms": probe_bound,
-        "bound_by": probe_by, "library_ms": None}]
+        "bound_by": probe_by, "library_ms": None}, em_kernel]
     say(card, "kernels at the main path's shapes (no PyTorch call computes "
-              "any of the five functions): " + "; ".join(
+              "any of the six functions): " + "; ".join(
                   f"{k['name']} {k['ms']:.4f} ms, {k['launches']} launches, "
                   f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
                   f"({100 * k['bound_ms'] / k['ms']:.1f}%)" for k in kernels))

@@ -19,18 +19,25 @@ many bin-pair instances and all candidate component counts K at once:
   matching the strict ``<`` in ``MatePairEM.cpp:601``).
 
 The host half (``EMBatch`` to ``_select_kkz``, the shape buckets,
-``select_memberships``) is the reference's text.  The device program is
-plain PyTorch on the tensors' own device, with no hand-written kernel: on a
-CUDA device it runs there or ``run_batch`` raises, and ``device="cpu"``
-runs the same code on CPU tensors.  Where the reference works around slow
-minor-axis gathers with one-hot masks and counts ties by an all-pairs
-compare, this uses ``torch.gather`` and ``torch.searchsorted``; the counts
-are the same integers.
+``select_memberships``) is the reference's text.  On a CUDA device the
+EM loop (``em_run``) is the hand-written kernel ``csrc/em.cu`` (wrapper
+``ops/em_cuda.py``): every row runs to its end on the card in one launch a
+slab segment, and a row's bits depend only on the row; ``run_batch`` runs
+there or raises.  On CPU tensors (``device="cpu"``) ``em_run`` is the
+plain PyTorch loop (``_build_em_run_plain``), which the kernel's
+arithmetic follows operation for operation outside the M-step's search;
+it runs on a CUDA tensor only where a test or ``chip_smoke.py`` calls it
+by name.  Where the reference works around slow minor-axis gathers with
+one-hot masks and counts ties by an all-pairs compare, the plain loop uses
+``torch.gather`` and ``torch.searchsorted`` (the counts are the same
+integers) and the kernel walks the reference's sequential merge.
 
 The device path is *decision-equivalent* to the oracle (same memberships);
-bit-level float trajectories differ because reductions are parallel.
-``tests/test_torch_em_batch.py`` holds it to the JAX program and to the
-oracle.
+bit-level float trajectories differ because sums are taken in other orders.
+``tests/test_torch_em_batch.py`` holds the plain loop to the JAX program
+and to the oracle, ``tests/test_torch_em_kernel.py`` the kernel's row code
+(built for the host) to the plain loop, and ``tests/test_torch_em_cuda.py``
+the kernel to the plain loop on the card.
 """
 
 from __future__ import annotations
@@ -439,32 +446,90 @@ def _m_step(r, batch_static, sigma, lam):
     return a, b, ok
 
 
-# The loop asks the device whether every row has finished once in this many
-# iterations (each question waits for the device).  Finished rows are
-# frozen, so the iterations past the end change no row, and the iteration
-# count returned is the one at which the last row finished.
+# The plain loop asks the device whether every row has finished once in
+# this many iterations (each question waits for the device).  Finished rows
+# are frozen, so the iterations past the end change no row, and the
+# iteration count returned is the one at which the last row finished.
 CHECK_EVERY = 4
+
+# calls of the plain loop by the device type of their tensors: on a CUDA
+# device only a comparison with the kernel calls it
+PLAIN_RUNS = {"cpu": 0, "cuda": 0}
 
 
 def _build_em_run(sigma: float, lam: float = LAMBDA,
                   tol: float = TOLERANCE, check_every: int = CHECK_EVERY):
     """The batched EM loop — shared by the plain entry
     (``make_em_step``) and the device-resident slab step
-    (``make_em_slab_step``)."""
+    (``make_em_slab_step``).
+
+    One EM drive, ``em_run(x, y, u, n, k, r0, ll0=None,
+    max_iters=MAX_ITERS, a0=None, b0=None)``: runs up to ``max_iters``
+    iterations from the responsibilities ``r0`` (fresh seeds or a resumed
+    carry) and the per-row last log-likelihood ``ll0`` (-BIG for fresh
+    rows; a resumed carry also brings its ``a0``, ``b0``, which a component
+    left without mass keeps).  Returns (a, b, w, ll, ok, iters, r, done,
+    failed, it_done) so a caller can compact converged rows out and resume
+    the stragglers; ``iters`` is the iteration at which the last row
+    finished, or ``max_iters``.  CUDA tensors: one launch of
+    ``em_rows_kernel`` (``ops/em_cuda.py``), whose rows' bits do not depend
+    on the batch, the padding or the segments.  CPU tensors: the plain loop
+    (``_build_em_run_plain``; ``check_every`` is its)."""
+    plain = _build_em_run_plain(sigma, lam, tol, check_every)
 
     def em_run(x, y, u, n, k, r0, ll0=None, max_iters=MAX_ITERS,
                a0=None, b0=None):
-        """One EM drive: runs up to ``max_iters`` iterations from the
-        responsibilities ``r0`` (fresh seeds or a resumed carry) and the
-        per-row last log-likelihood ``ll0`` (-BIG for fresh rows; a
-        resumed carry also brings its ``a0``, ``b0``, which a component
-        left without mass keeps).
-        Returns (a, b, w, ll, ok, iters, r, done, failed, it_done) so a
-        caller can compact converged rows out and resume the stragglers
-        — per-row trajectories are identical whether run in one launch
-        or in resumed segments (every op is row-independent)."""
+        if x.device.type == "cpu":
+            return plain(x, y, u, n, k, r0, ll0, max_iters, a0, b0)
+        from ..ops import em_cuda
+        return _em_run_rows(em_cuda.em_rows, sigma, lam, tol, x, y, u, n, k,
+                            r0, ll0, max_iters, a0, b0)
+
+    return em_run
+
+
+def _em_run_rows(rows, sigma, lam, tol, x, y, u, n, k, r0, ll0, max_iters,
+                 a0, b0):
+    """``em_run`` through ``rows`` (``ops/em_cuda.em_rows``: the whole run
+    in one launch): the carry made contiguous in the operands' type (the
+    responsibilities of components past k zeroed, as the plain loop
+    starts), and ``iters`` read off the rows' ``it_done``."""
+    B, KM, N = r0.shape
+    dev, dtype = x.device, x.dtype
+    comp_active = torch.arange(KM, device=dev)[None, :] < k[:, None]
+    r = torch.where(comp_active[..., None], r0, 0.0).to(dtype).contiguous()
+
+    def carry(v, fill, shape):
+        if v is None:
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+        return v.to(dtype).clone(memory_format=torch.contiguous_format)
+
+    a, b = (carry(v, 0.0, (B, KM)) for v in (a0, b0))
+    ll = carry(ll0, -float(BIG), (B,))
+    w, done, failed, it_done = rows(
+        *(v.to(dtype).contiguous() for v in (x, y, u)),
+        n.to(torch.int32).contiguous(), k.to(torch.int32).contiguous(),
+        r, a, b, ll, max_iters=max_iters, never=MAX_ITERS + 1, sigma=sigma,
+        lam=lam, tol=tol)
+    iters = int(torch.clamp_max(it_done, max_iters).max()) if B else 0
+    return a, b, w, ll, done & ~failed, iters, r, done, failed, it_done
+
+
+def _build_em_run_plain(sigma: float, lam: float = LAMBDA,
+                        tol: float = TOLERANCE,
+                        check_every: int = CHECK_EVERY):
+    """The batched EM loop in plain PyTorch, driven from the host an
+    iteration at a time: what ``em_run`` runs on CPU tensors, and the
+    kernel's reference on the card."""
+
+    def em_run(x, y, u, n, k, r0, ll0=None, max_iters=MAX_ITERS,
+               a0=None, b0=None):
+        """See ``_build_em_run``.  Per-row trajectories are identical
+        whether run in one launch or in resumed segments (every op is
+        row-independent)."""
         B, KM, N = r0.shape
         dev, dtype = x.device, x.dtype
+        PLAIN_RUNS[dev.type] = PLAIN_RUNS.get(dev.type, 0) + 1
         big = float(BIG)
         # 1e-300 in the carry's type: 0 in float32, where a point without
         # mass then divides 0 by 0 and the row is marked failed
@@ -699,12 +764,14 @@ def run_batch(batch: EMBatch, params: EMParams, dtype=None, device="cuda",
 
 
 # (K, N)-sized tensors of the carry's type that one row of a slab holds at
-# the peak of an iteration: the five event lists of the M-step, each N
-# wide, times the keys, masks and temporaries alive over them.  Measured
-# as peak memory over the largest slab's (rows, K, N) bytes: 39 in float64
-# and 46 in float32 on an NVIDIA H100 (``chip_smoke.py``, the EM phase,
-# 1,332 rows at K 10 and N 80).  A slab on a CUDA device takes at most
-# SLAB_SHARE of the free memory by this count.
+# the peak of an iteration of the plain loop: the five event lists of the
+# M-step, each N wide, times the keys, masks and temporaries alive over
+# them.  Measured as peak memory over the largest slab's (rows, K, N)
+# bytes: 39 in float64 and 46 in float32 on an NVIDIA H100 (``chip_smoke.py``,
+# the EM phase, 1,332 rows at K 10 and N 80); the kernel's run peaks at 3.7
+# (the same phase, float64 and float32), so the count is generous for it.
+# A slab on a CUDA device takes at most SLAB_SHARE of the free memory by
+# this count.
 WORK_TENSORS = 64
 SLAB_SHARE = 0.5
 

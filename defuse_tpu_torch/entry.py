@@ -151,12 +151,13 @@ def _dryrun_rank(work, device, timeout) -> int:
     discover; writes ``report.<rank>.json`` under ``work``."""
     import torch.distributed as dist
 
-    from .ops import split_dp_cuda
+    from .ops import em_cuda, split_dp_cuda
     from .parallel.launch import global_mesh, init_distributed, rank_device
 
     rank, n = init_distributed(timeout=timeout)
     dev = rank_device(device)
     split_dp_cuda.reset_launches()
+    em_cuda.reset_launches()
     shape = (n // 2, 2) if n % 2 == 0 else (n, 1)
     mesh = global_mesh(inst_size=shape[1])
     t0 = time.time()
@@ -169,7 +170,7 @@ def _dryrun_rank(work, device, timeout) -> int:
                        "inst": mesh.get_local_rank("inst"),
                        "shape": list(shape)},
               "step_s": t_step, **step, **real,
-              "launches": dict(split_dp_cuda.LAUNCHES)}
+              "launches": dict(split_dp_cuda.LAUNCHES) | em_cuda.LAUNCHES}
     (pathlib.Path(work) / f"report.{rank}.json").write_text(
         json.dumps(report))
     dist.destroy_process_group()

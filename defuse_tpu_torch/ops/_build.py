@@ -3,10 +3,10 @@
 ``nvcc`` compiles ``csrc/<name>.cu`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  The library lands under ``build/kernels/`` at the
-repository root, named by a hash of its source and flags, so a changed
-source rebuilds and an unchanged one loads the cached file.  The build
-runs at first use, never at import; a failed build raises with
-``nvcc``'s stderr.
+repository root, named by a hash of its source, the headers of ``csrc/``
+and its flags, so a changed source rebuilds and an unchanged one loads the
+cached file.  The build runs at first use, never at import; a failed build
+raises with ``nvcc``'s stderr.
 """
 
 from __future__ import annotations
@@ -24,6 +24,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / \
     "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source beyond NVCC_FLAGS: the EM's sums and products round
+# one by one, as the plain version's tensor operations do
+EXTRA_FLAGS = {"em": ("--fmad=false",)}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -53,9 +56,15 @@ def sass(name: str) -> str:
     return proc.stdout
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(flags(name)).encode()) \
+        .hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -67,7 +76,8 @@ def build(name: str) -> tuple[pathlib.Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [find_nvcc(), *flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -47,12 +47,14 @@ LINK_POINTS = {
 SCREEN_DEVICE_READS_S = 8.91e6
 SCREEN_HOST_READS_S_PER_CORE = 204e3
 # the EM (phase 12 on the bench dataset's 381 bin pairs, 3,806 rows, the
-# batched EM in float64 as run_batch runs it, its second run; the native EM
-# the median of five runs in phase 14):
-EM_NATIVE_ROWS_S = 55.1e3       # native.em_cluster_batch, 0.069 s
-EM_DEVICE_COMPUTE_ROWS_S = 873  # rows over the run's 4.398 s less its upload
-EM_UPLOAD_BYTES_PER_ROW = 6203  # EM_RUN_STATS["up_MB"] (23.6) over the rows
-EM_SLAB_ROWS = 89               # rows over EM_RUN_STATS["slabs"] (43)
+# batched EM in float64 as run_batch runs it, its second run, each slab
+# segment one launch of em_rows_kernel; the native EM the median of five
+# runs in phase 14):
+EM_NATIVE_ROWS_S = 55.1e3         # native.em_cluster_batch, 0.069 s
+EM_DEVICE_COMPUTE_ROWS_S = 52.1e3  # rows over the run's 0.096 s less its
+                                   # upload (0.023 s)
+EM_UPLOAD_BYTES_PER_ROW = 6203    # EM_RUN_STATS["up_MB"] (23.6) over the rows
+EM_SLAB_ROWS = 89                 # rows over EM_RUN_STATS["slabs"] (43)
 
 
 def screen_decision(n_candidates: int, read_pad_len: int, link: dict,

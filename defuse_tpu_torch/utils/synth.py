@@ -19,7 +19,7 @@ importing anything outside the package:
   directory), the gene pairs the reads were planted with, and a library
   dealt out into smaller ones;
 * ``sweep_inputs``, ``edge_case``, ``screen_case``, ``verify_case``,
-  ``frontend_config``: the seeded cases that hold the kernels' plain versions against the JAX
+  ``frontend_config``, ``em_instance``: the seeded cases that hold the kernels' plain versions against the JAX
   package on the CPU and the kernels against their plain versions on the
   card.
 """
@@ -733,3 +733,18 @@ def screen_case():
     mins = np.array([accept_threshold(len(r)) for r in reads],
                     dtype=np.int32)
     return u1p, u1l, u2p, u2l, np.array(idx, np.int32), rp, rl, mins
+
+
+def em_instance(rng, n_clusters, n_points):
+    """Simulated bin-pair: clusters of mate pairs around breakpoints."""
+    xs, ys, us = [], [], []
+    for _ in range(n_clusters):
+        ax = rng.integers(1000, 200000)
+        by = rng.integers(1000, 200000)
+        for _ in range(n_points // n_clusters):
+            flen = int(rng.normal(200, 20))
+            left = rng.integers(20, flen - 70)
+            xs.append(ax - left)
+            ys.append(by - (flen - left - 100))
+            us.append(200.0 - 100.0)
+    return (np.array(xs, float), np.array(ys, float), np.array(us, float))

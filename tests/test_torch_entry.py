@@ -79,7 +79,8 @@ def test_dryrun_multichip(monkeypatch, capsys, n, shape):
         assert r["n_breaks"] > 0 and r["em_rows"] > 0
         # on CPU tensors the plain version runs: no kernel launch counted
         assert r["launches"] == {"split_dp_rowmax": 0, "split_dp_screen": 0,
-                                 "split_dp_tie_columns": 0}
+                                 "split_dp_tie_columns": 0,
+                                 "em_rows_kernel": 0}
     assert coords == {(d, i) for d in range(shape[0])
                       for i in range(shape[1])}
     # each data slice is replicated over inst, each EM slice over data: the

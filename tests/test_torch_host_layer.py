@@ -94,10 +94,15 @@ DIVERGED = {
         "once; the other six verbs are the reference's text",
         ("_find_or_materialize_pair_sam",)),
     "cluster/matepair_em_batch.py": (
-        "the device program (_exponents to _run_bucketed, run_batch) is "
-        "PyTorch on the tensors' device, without the one-hot masks, the "
-        "compile-shape padding and the memory constants of the JAX "
-        "program; prepare_batch and _resolve_exact lose the timings of "
+        "on a CUDA device em_run is the hand-written kernel csrc/em.cu "
+        "(ops/em_cuda.py: every row to its end in one launch a slab "
+        "segment), and the loop of PyTorch ops (_build_em_run_plain, "
+        "_exponents to _m_step) is its plain version, which CPU tensors "
+        "run; the rest of the device program (the slab step, "
+        "_run_bucketed, run_batch) is PyTorch on the tensors' device, "
+        "without the one-hot masks, the compile-shape padding and the "
+        "memory constants of the JAX program; prepare_batch and "
+        "_resolve_exact lose the timings of "
         "the reference's hardware from their comments and fall back to "
         "Python only on AttributeError (a library built before the batch "
         "entry points), where the reference swallows every exception; "
