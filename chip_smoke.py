@@ -89,13 +89,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the run in one segment must give the bucketed run's bits of ``a``,
    ``b``, ``ll``, ``ok``; the kernel against the plain loop on the whole
    batch in float64: ``a`` and ``b`` within 1e-4 bases and ``ll`` within
-   1e-9 relative on rows with the same ``ok`` and ``it_done``.  Prints
-   rows, widest N, slabs, segments, iterations, row-iterations run and
-   live, the seconds of prepare, the runs and select, the native EM's and
-   the plain loop's seconds, the instances re-solved on the host, peak
-   device memory, and from ``torch.profiler`` the kernel's device time
-   (the whole batch in one launch, and inside ``run_em``), the launches a
-   call and the device's busy share;
+   1e-9 relative on rows with the same ``ok`` and ``it_done``; the
+   kernel's two M-steps (``em_cuda.m_step_check``: the sequential walk and
+   the warp form the kernel runs) on the same responsibilities, the bench
+   batch's after 1, 5 and 20 iterations and edge cases (runs of equal x, y
+   or both, equal running sums on both sides, points and components
+   without mass, rows of one and two points, paths with no rising entry
+   or a rising first entry, paths of several chunks), float64 and
+   float32: the same bits of ``a``, ``b`` and ``nk``, a differing row
+   printed.  Prints rows, widest N, slabs, segments, iterations,
+   row-iterations run and live, the seconds of prepare, the runs and
+   select, the native EM's and the plain loop's seconds, the instances
+   re-solved on the host, peak device memory, from ``torch.profiler`` the
+   kernel's device time (the whole batch in one launch, and inside
+   ``run_em``), the launches a call and the device's busy share, a
+   batch-iteration's time with every row held running, and the SM cycles
+   a row-iteration spends in each phase with the M-step's share
+   (``utils/time_em.phase_cycles``);
 13. the multi-process path: ``defuse_tpu_torch.entry.entry()`` on the card
    (``rowmax_kernel``) equal to ``entry(device="cpu")`` bit for bit, and
    timed; the phase-9 dataset dealt into two fastq shards and run on two
@@ -1449,6 +1459,103 @@ def em_bound(batch, it_done, itemsize):
     return work, least, most
 
 
+def em_edge_batches(em, params, seed=11):
+    """The M-step's edge cases (``tests/test_torch_em_kernel.py`` has the
+    same kinds): name -> (batch, responsibilities, a, b)."""
+    import dataclasses
+
+    from defuse_tpu_torch.utils.synth import em_instance
+    rng = np.random.default_rng(seed)
+    base = [em_instance(rng, rng.integers(1, 4), 24) for _ in range(4)]
+    grid = [(np.round(x / 20) * 20, np.round(y / 20) * 20, u)
+            for x, y, u in base]
+    sets = {"random": base, "massless": base, "n1_n2": base,
+            "x_runs": [(gx, y, u) for (gx, _g, u), (_x, y, _u)
+                       in zip(grid, base)],
+            "y_runs": [(x, gy, u) for (_g, gy, u), (x, _y, _u)
+                       in zip(grid, base)],
+            "both_runs": grid, "zero_in_runs": grid,
+            "equal_sums": [(x, x + 500.0, u) for x, _y, u in base],
+            "no_rising": [(x, y, u - 4000.0) for x, y, u in base],
+            "first_rising": [(x, y, u + 4000.0) for x, y, u in base],
+            "wide": [em_instance(rng, 2, 100), em_instance(rng, 3, 150),
+                     em_instance(rng, 1, 70)]}
+    out = {}
+    for name, instances in sets.items():
+        batch = em.prepare_batch(instances, params)
+        B, KM, N = batch.r0.shape
+        if name == "n1_n2":  # each row cut to its first point or two
+            batch = dataclasses.replace(
+                batch, n=(1 + np.arange(B) % 2).astype(batch.n.dtype))
+        r = rng.random((B, KM, N)) * \
+            (np.arange(KM)[None, :, None] < batch.k[:, None, None])
+        if name == "zero_in_runs":  # whole points without mass
+            r = r * (rng.random((B, 1, N)) < 0.5)
+        if name == "massless":  # the first component at K >= 2
+            r[batch.k >= 2, 0] = 0.0
+        r = r / np.maximum(r.sum(axis=1, keepdims=True), 1e-300)
+        out[name] = (batch, r, rng.normal(1e5, 1e4, (B, KM)),
+                     rng.normal(1e5, 1e4, (B, KM)))
+    return out
+
+
+def em_m_step_forms(card, batch, params, dev):
+    """The kernel's two M-steps on the card (``em_cuda.m_step_check``: the
+    sequential walk and the warp form ``em_rows_kernel`` runs) on the same
+    responsibilities: the bench batch's after 1, 5 and 20 iterations of the
+    kernel, and the edge cases, in float64 and float32.  Any differing bit
+    of a, b or nk fails the phase, its rows printed."""
+    from defuse_tpu_torch.cluster import matepair_em_batch as em
+    from defuse_tpu_torch.ops import em_cuda
+    sigma = params.fragment_stddev
+    cases = []
+    for name, dtype in EM_DTYPES.items():
+        x, y, u, n, k, r0 = em_operands(batch, dtype, dev)
+        B, KM, _N = r0.shape
+        r0 = torch.where(torch.arange(KM, device=dev)[None, :, None]
+                         < k[:, None, None], r0, 0.0)
+        for iters in (1, 5, 20):
+            r = r0.clone()
+            a = torch.zeros((B, KM), dtype=dtype, device=dev)
+            b = torch.zeros_like(a)
+            ll = torch.full((B,), -float(em.BIG), dtype=dtype, device=dev)
+            em_cuda.em_rows(x, y, u, n, k, r, a, b, ll, max_iters=iters,
+                            never=em.MAX_ITERS + 1, sigma=sigma,
+                            lam=em.LAMBDA, tol=em.TOLERANCE)
+            cases.append((f"bench batch after {iters} iterations", name,
+                          (x, y, u, n, k, r, a, b)))
+        for edge, (eb, er, ea, ebb) in em_edge_batches(em, params).items():
+            cases.append((f"edge case {edge}", name, [
+                torch.as_tensor(v, dtype=dtype, device=dev)
+                for v in (eb.x, eb.y, eb.u)] + [
+                torch.as_tensor(v, dtype=torch.int32, device=dev)
+                for v in (eb.n, eb.k)] + [
+                torch.as_tensor(v, dtype=dtype, device=dev).contiguous()
+                for v in (er, ea, ebb)]))
+    components = 0
+    for label, name, ops in cases:
+        got = em_cuda.m_step_check(*ops, sigma=sigma, lam=em.LAMBDA)
+        walk, warp = ([v.cpu().numpy() for v in got[form]]
+                      for form in ("walk", "warp"))
+        components += int((walk[2] > 0).sum())
+        for what, p, q in zip(("a", "b", "nk"), walk, warp):
+            differ = (p.view(np.uint8).reshape(len(p), -1)
+                      != q.view(np.uint8).reshape(len(q), -1)).any(axis=1)
+            check(not differ.any(),
+                  f"EM M-step, {label} ({name}): the warp form's {what} "
+                  f"differs from the walk's in rows "
+                  f"{np.nonzero(differ)[0][:8].tolist()}: "
+                  f"{q[differ][:2].tolist()} against "
+                  f"{p[differ][:2].tolist()}")
+    say(card, f"EM M-step on the card, the warp form (em_rows_kernel's) "
+              f"against the walk: {len(cases)} cases (the bench batch "
+              f"after 1, 5 and 20 iterations and "
+              f"{len(cases) // len(EM_DTYPES) - 3} edge cases, float64 and "
+              f"float32), {components} components with mass: a, b and nk "
+              f"the same bits")
+    return {"cases": len(cases), "components": components}
+
+
 def phase_em(card, dataset, dev):
     from unittest import mock
 
@@ -1640,6 +1747,8 @@ def phase_em(card, dataset, dev):
               f"{rec['vs_plain']['iters']} (kernel, plain); float32 "
               f"{rec['vs_plain_float32']}")
 
+    rec["m_step_forms"] = em_m_step_forms(card, batch, params, dev)
+
     # timings: the kernel alone (its device time in one profiled call of
     # the whole batch, and in a profiled run_em), the calls' walls
     em.make_em_step(sigma)(*ops)
@@ -1656,6 +1765,34 @@ def phase_em(card, dataset, dev):
                ops_least=least, ops_most=most,
                bound_most_ms=bound(work, most / FP64_OPS_S * 1e3)[0],
                max_abs_err=rec["vs_plain"]["max_abs_ab"])
+    # a batch-iteration with every row held running (tol below 0), and
+    # where a row-iteration's time goes (utils/time_em's phase clock)
+    from defuse_tpu_torch.utils.time_em import phase_cycles
+
+    B, KM = ops[5].shape[:2]
+    r_held = torch.where(torch.arange(KM, device=dev)[None, :, None]
+                         < ops[4][:, None, None], ops[5], 0.0)
+
+    def held(iters):
+        r = r_held.clone()
+        a = torch.zeros((B, KM), dtype=torch.float64, device=dev)
+        b = torch.zeros_like(a)
+        ll = torch.full((B,), -float(em.BIG), dtype=torch.float64,
+                        device=dev)
+        em_cuda.em_rows(*ops[:5], r, a, b, ll, max_iters=iters,
+                        never=em.MAX_ITERS + 1, sigma=sigma, lam=em.LAMBDA,
+                        tol=-1.0)
+    held_ms = {m: time_ms(lambda m=m: held(m), 3) for m in (10, 30)}
+    rec["ms_per_batch_iteration"] = (held_ms[30] - held_ms[10]) / 20
+    rec["phases"] = phase_cycles(REPO, batch, params)
+    say(card, f"EM kernel's split, float64: a batch-iteration with all "
+              f"{rec['rows']} rows held running "
+              f"{rec['ms_per_batch_iteration']:.4f} ms (held 10 and 30 "
+              f"iterations: {held_ms[10]:.3f}, {held_ms[30]:.3f} ms); SM "
+              f"cycles a row-iteration (phase clock, "
+              f"{rec['phases']['row_iterations']} row-iterations): " +
+        ", ".join(f"{k} {v:.0f}" for k, v in rec["phases"]["cycles"].items())
+        + f"; the M-step's share {100 * rec['phases']['m_step_share']:.1f}%")
     say(card, "EM timings, float64: " + (
         "torch.profiler recorded no device event (kernel time not "
         "measured)" if one["kernel_ms"] is None else
@@ -2381,7 +2518,9 @@ def main() -> int:
         "plain_ms": em_rec["plain_ms"], "bound_ms": em_rec["bound_ms"],
         "bound_by": em_rec["bound_by"], "library_ms": None,
         "call_ms": em_rec["call_ms"], "rows": em_rec["rows"],
-        "bound_most_ms": em_rec["bound_most_ms"]}
+        "bound_most_ms": em_rec["bound_most_ms"],
+        "ms_per_batch_iteration": em_rec["ms_per_batch_iteration"],
+        "m_step_share": em_rec["phases"]["m_step_share"]}
     say(card, f"em_rows_kernel: launches by path {em_by_path}; the whole "
               f"batch ({em_rec['rows']} rows) in one launch "
               + (f"{em_rec['kernel_ms']:.3f} ms, bound "

@@ -51,8 +51,8 @@ SCREEN_HOST_READS_S_PER_CORE = 204e3
 # segment one launch of em_rows_kernel; the native EM the median of five
 # runs in phase 14):
 EM_NATIVE_ROWS_S = 55.1e3         # native.em_cluster_batch, 0.069 s
-EM_DEVICE_COMPUTE_ROWS_S = 52.1e3  # rows over the run's 0.096 s less its
-                                   # upload (0.023 s)
+EM_DEVICE_COMPUTE_ROWS_S = 50.7e3  # rows over the run's 0.105 s less its
+                                   # upload (0.030 s)
 EM_UPLOAD_BYTES_PER_ROW = 6203    # EM_RUN_STATS["up_MB"] (23.6) over the rows
 EM_SLAB_ROWS = 89                 # rows over EM_RUN_STATS["slabs"] (43)
 

@@ -17,7 +17,12 @@ Tolerances, stated once:
 * memberships equal the exact answer (``native.em_cluster_batch``, or the
   oracle where the native library is not built) instance for instance;
 * bits: two runs, whole or bucketed, in slabs or segments, at any padded
-  width (also past shared memory), are the same bits (tolerance 0).
+  width (also past shared memory), are the same bits (tolerance 0);
+* the kernel's two M-steps on the card (``em_cuda.m_step_check``: the
+  sequential walk and the warp form the kernel runs), on the same
+  responsibilities: the same bits of ``a``, ``b`` and ``nk`` (tolerance
+  0), on ``tests/test_torch_em_kernel.py``'s edge cases and on batches
+  after 1, 5 and 20 iterations of the kernel.
 """
 
 import dataclasses
@@ -31,6 +36,7 @@ from defuse_tpu_torch.cluster import native
 from defuse_tpu_torch.cluster.matepair_em import EMParams, MatePairEM
 from defuse_tpu_torch.ops import em_cuda
 
+from test_torch_em_kernel import M_STEP_EDGES, edge_batch
 from torch_cases import em_instance
 
 PARAMS = EMParams(fragment_mean=200.0, fragment_stddev=20.0,
@@ -212,3 +218,66 @@ def test_point_without_mass_fails_the_row(cuda_device, name):
         np.testing.assert_array_equal(got[key], ref[key], key)
     np.testing.assert_array_equal(np.isnan(got["r"]), np.isnan(ref["r"]))
     assert np.isnan(got["r"][row]).any() == (name == "float32")
+
+
+def forms_differ(got):
+    """The components whose a, b or nk differ in a bit between the walk
+    and the warp form."""
+    out = []
+    for walk, warp in zip(got["walk"], got["warp"]):
+        p, q = (v.cpu().numpy() for v in (walk, warp))
+        out.append((p.view(np.uint8).reshape(p.shape + (-1,))
+                    != q.view(np.uint8).reshape(q.shape + (-1,))).any(-1))
+    return np.logical_or.reduce(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("edge", M_STEP_EDGES)
+def test_m_step_forms_same_bits_on_edges(cuda_device, edge, name):
+    dtype = DTYPES[name]
+    batch, r, a0, b0 = edge_batch(edge, np.random.default_rng(
+        M_STEP_EDGES.index(edge)))
+    ops = [torch.as_tensor(v, dtype=dtype, device=cuda_device)
+           for v in (batch.x, batch.y, batch.u)] + \
+        [torch.as_tensor(v, dtype=torch.int32, device=cuda_device)
+         for v in (batch.n, batch.k)] + \
+        [torch.as_tensor(v, dtype=dtype, device=cuda_device).contiguous()
+         for v in (r, a0, b0)]
+    got = em_cuda.m_step_check(*ops, sigma=SIGMA, lam=em.LAMBDA)
+    assert not forms_differ(got).any(), np.nonzero(forms_differ(got))
+    assert (got["walk"][2] > 0).sum() >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DTYPES)
+@pytest.mark.parametrize("iters", [1, 5, 20])
+def test_m_step_forms_same_bits_after_iterations(cuda_device, iters, name):
+    """The responsibilities, a and b that ``iters`` iterations of the
+    kernel leave, through both M-steps, also past shared memory (N
+    3,000, the rows' arrays in device scratch)."""
+    dtype = DTYPES[name]
+    batch = em.prepare_batch(instances_of(7, 9), PARAMS)
+    for width in (batch.x.shape[1], 3000):
+        pad = width - batch.x.shape[1]
+        wide = dataclasses.replace(
+            batch, **{f: np.pad(getattr(batch, f), [(0, 0), (0, pad)])
+                      for f in ("x", "y", "u")},
+            r0=np.pad(batch.r0, [(0, 0), (0, 0), (0, pad)]))
+        x, y, u, n, k, r = operands(wide, dtype, cuda_device)
+        B, KM = r.shape[:2]
+        r = torch.where(torch.arange(KM, device=cuda_device)[None, :, None]
+                        < k[:, None, None], r, 0.0).contiguous()
+        a = torch.zeros((B, KM), dtype=dtype, device=cuda_device)
+        b = torch.zeros_like(a)
+        ll = torch.full((B,), -float(em.BIG), dtype=dtype,
+                        device=cuda_device)
+        em_cuda.em_rows(x, y, u, n, k, r, a, b, ll, max_iters=iters,
+                        never=em.MAX_ITERS + 1, sigma=SIGMA, lam=em.LAMBDA,
+                        tol=em.TOLERANCE)
+        got = em_cuda.m_step_check(x, y, u, n, k, r, a, b, sigma=SIGMA,
+                                   lam=em.LAMBDA)
+        assert not forms_differ(got).any(), (width, np.nonzero(
+            forms_differ(got)))
+        assert (got["walk"][2] > 0).sum() > B
+

@@ -16,7 +16,12 @@ run on CPU tensors through the same Python as the card's launches
   would allow whole bases), ``ll`` within ``LL_RTOL = 1e-9`` of
   ``max(1, |ll|)``; memberships equal the oracle's exactly;
 * bits: a row's outputs are the same bits whatever its batch, padding or
-  segments (tolerance 0).
+  segments (tolerance 0);
+* the kernel's two M-steps, the sequential walk (``m_step_walk``) and the
+  warp form the kernel runs (``m_sums`` + ``m_step_warp``, the host playing
+  a warp's 32 lanes in a loop): the same bits of ``a``, ``b`` and ``nk``
+  on every case, and the whole EM through each the same bits of ``a``,
+  ``b``, ``ll``, ``it_done``, ``done`` and ``failed`` (tolerance 0).
 
 The card's own build is held to the plain loop on the card by
 ``tests/test_torch_em_cuda.py``.
@@ -64,9 +69,9 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def host_rows():
-    """``em_cuda.em_rows``'s counterpart on CPU tensors: the kernel's row
-    code built for the host.  Skips where no C++ compiler is found."""
+def host_lib():
+    """The kernel's row code built for the host (``csrc/em_host.cpp``).
+    Skips where no C++ compiler is found."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -81,13 +86,19 @@ def host_rows():
         subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
                        check=True, capture_output=True)
         tmp.replace(out)
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def rows_entry(lib, name, r_inside=True):
+    """``em_cuda.em_rows``'s counterpart on CPU tensors through the host
+    entry ``name`` (``em_rows_host``: the kernel's code;
+    ``em_rows_walk_host``: the M-step walked), with the responsibilities in
+    the row's arrays or used in place in the carry."""
     entry = {}
-    for dtype, name in ((torch.float64, "em_rows_host_f64"),
-                        (torch.float32, "em_rows_host_f32")):
-        fn = getattr(lib, name)
+    for dtype, suffix in ((torch.float64, "_f64"), (torch.float32, "_f32")):
+        fn = getattr(lib, name + suffix)
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
-            [ctypes.c_double] * 3
+            [ctypes.c_double] * 3 + [ctypes.c_int]
         entry[dtype] = fn
 
     def rows(x, y, u, n, k, r, a, b, ll, *, max_iters, never, sigma, lam,
@@ -101,9 +112,38 @@ def host_rows():
         it_done = torch.full((B,), never, dtype=torch.int32)
         entry[x.dtype](*(t.data_ptr() for t in (x, y, u, n, k, r, a, b, w,
                                                  ll, done, failed, it_done)),
-                       B, KM, N, max_iters, never, sigma, lam, tol)
+                       B, KM, N, max_iters, never, sigma, lam, tol,
+                       int(r_inside))
         return w, done.bool(), failed.bool(), it_done
     return rows
+
+
+@pytest.fixture(scope="module")
+def host_rows(host_lib):
+    """``em_cuda.em_rows``'s counterpart on CPU tensors: the kernel's row
+    code built for the host."""
+    return rows_entry(host_lib, "em_rows_host")
+
+
+def m_step_forms(lib, batch, r, dtype, a0=None, b0=None):
+    """Both M-steps of every row of ``batch`` on responsibilities ``r``
+    (``em_m_step_host``): {"walk": (a, b, nk), "warp": (a, b, nk)}."""
+    B, KM, N = r.shape
+    x, y, u = (torch.as_tensor(v, dtype=dtype).contiguous()
+               for v in (batch.x, batch.y, batch.u))
+    n, k = (torch.as_tensor(v, dtype=torch.int32) for v in (batch.n, batch.k))
+    rt = torch.as_tensor(r, dtype=dtype).contiguous()
+    a, b = (torch.zeros((B, KM), dtype=dtype) if v is None
+            else torch.as_tensor(v, dtype=dtype).contiguous()
+            for v in (a0, b0))
+    out = torch.zeros((6, B, KM), dtype=dtype)
+    fn = getattr(lib, "em_m_step_host_" + ("f64" if dtype == torch.float64
+                                           else "f32"))
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+        [ctypes.c_double] * 2
+    fn(*(t.data_ptr() for t in (x, y, u, n, k, rt, a, b, out)), B, KM, N,
+       SIGMA, LAMBDA)
+    return {"walk": tuple(out[:3]), "warp": tuple(out[3:])}
 
 
 def run_rows(rows, batch, dtype, **kw):
@@ -278,6 +318,86 @@ def test_m_step_without_rising_entry_takes_the_path_end(host_rows):
     np.testing.assert_array_equal(got["b"].numpy()[mask], b[mask])
 
 
+def edge_batch(name, rng):
+    """A padded batch for ``M_STEP_EDGES`` case ``name``, the
+    responsibilities its M-step gets, and a and b to start from."""
+    if name in M_STEP_KINDS:
+        batch, r, _dyadic = m_step_case(name, int(rng.integers(1 << 16)))
+    else:
+        base = [em_instance(rng, rng.integers(1, 4), 24) for _ in range(3)]
+        instances = {
+            "x_runs": [(np.round(x / 20) * 20, y, u) for x, y, u in base],
+            "y_runs": [(x, np.round(y / 20) * 20, u) for x, y, u in base],
+            "zero_in_runs": [(np.round(x / 20) * 20, np.round(y / 20) * 20,
+                              u) for x, y, u in base],
+            "n1_n2": base,
+            "no_rising": [(x, y, u - 4000.0) for x, y, u in base],
+            "first_rising": [(x, y, u + 4000.0) for x, y, u in base],
+            "wide": [em_instance(rng, 2, 100), em_instance(rng, 3, 150),
+                     em_instance(rng, 1, 70)],
+        }[name]
+        batch = em.prepare_batch(instances, PARAMS)
+        B, KM, N = batch.r0.shape
+        if name == "n1_n2":  # each row cut to its first point or two
+            batch = dataclasses.replace(batch, n=(1 + np.arange(B) % 2)
+                                        .astype(batch.n.dtype))
+        r = rng.random((B, KM, N)) * \
+            (np.arange(KM)[None, :, None] < batch.k[:, None, None])
+        if name == "zero_in_runs":  # whole points without mass
+            r = r * (rng.random((B, 1, N)) < 0.5)
+        r = r / np.maximum(r.sum(axis=1, keepdims=True), 1e-300)
+    B, KM, _N = batch.r0.shape
+    return batch, r, rng.normal(1e5, 1e4, (B, KM)), \
+        rng.normal(1e5, 1e4, (B, KM))
+
+
+M_STEP_EDGES = M_STEP_KINDS + ("x_runs", "y_runs", "zero_in_runs", "n1_n2",
+                               "no_rising", "first_rising", "wide")
+
+
+def same_bits(x, y):
+    x, y = (np.ascontiguousarray(v.numpy()) for v in (x, y))
+    return x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("name", M_STEP_EDGES)
+def test_m_step_warp_equals_walk(host_lib, name, dtype):
+    """The warp form of the M-step (the kernel's) and the sequential walk,
+    from the same responsibilities and a, b: the same bits of a, b and nk
+    in every component, among them components without mass (a and b left
+    as given), rows of one and two points, runs of equal x, of equal y and
+    of both, equal running sums on both sides, a path with no rising entry,
+    one whose first entry rises, and paths of several 32-diagonal
+    chunks."""
+    rng = np.random.default_rng(M_STEP_EDGES.index(name))
+    batch, r, a0, b0 = edge_batch(name, rng)
+    got = m_step_forms(host_lib, batch, r, dtype, a0, b0)
+    for what, walk, warp in zip(("a", "b", "nk"), got["walk"], got["warp"]):
+        assert same_bits(walk, warp), (name, what, np.nonzero(
+            (walk != warp).numpy()))
+    active = np.arange(r.shape[1])[None, :] < batch.k[:, None]
+    nk = got["walk"][2].numpy()
+    assert (nk[active] > 0).sum() >= 4
+    moved = got["walk"][0].numpy() != a0.astype(nk.dtype)
+    assert not moved[~(nk > 0)].any()
+    valid = np.arange(r.shape[2])[None, :] < batch.n[:, None]
+    rv = r * valid[:, None, :]
+    xs0, ys0 = (np.where(valid, v, -np.inf).max(axis=1)
+                for v in (batch.x, batch.y))
+    rxyu = (rv * (batch.x + batch.y + batch.u)[:, None, :]).sum(axis=2)
+    first = (rxyu - rv.sum(axis=2) * (xs0 + ys0)[:, None])[active]
+    if name == "first_rising":
+        assert (first > 0).any()
+    if name == "no_rising":
+        assert (first < 0).all()
+    if name == "n1_n2":
+        assert {1, 2} <= set(batch.n.tolist())
+    if name == "wide":
+        assert batch.n.max() > 64 + 32
+
+
 # --- (2) the whole EM: the kernel's row code against the plain loop ---------
 
 @pytest.mark.parametrize("seed,count", [(0, 12), (7, 9), (21, 14)])
@@ -305,6 +425,31 @@ def test_kernel_em_matches_plain_float64(host_rows, seed, count):
     if same.all():
         assert got["iters"] == ref["iters"]
     assert got["a"].dtype == np.float64 and got["it_done"].dtype == np.int32
+
+
+@pytest.mark.parametrize("plan", ["shared", "scratch"])
+@pytest.mark.parametrize("seed,count", [(0, 12), (7, 9), (21, 14)])
+def test_whole_em_warp_equals_walk(host_lib, seed, count, plan):
+    """The whole EM with the kernel's M-step and with the walk: the same
+    bits of a, b, ll and the flags, on ``test_kernel_em_matches_plain_
+    float64``'s batches, with the responsibilities in the row's arrays at
+    the batch's width (as shared memory holds them on the card) and in the
+    carry at the width of the card's device scratch (N 1,200)."""
+    batch = em.prepare_batch(instances_of(seed, count, flat=True), PARAMS)
+    if plan == "scratch":
+        pad = 1200 - batch.x.shape[1]
+        batch = dataclasses.replace(
+            batch, **{f: np.pad(getattr(batch, f), [(0, 0), (0, pad)])
+                      for f in ("x", "y", "u")},
+            r0=np.pad(batch.r0, [(0, 0), (0, 0), (0, pad)]))
+    inside = plan == "shared"
+    got = run_rows(rows_entry(host_lib, "em_rows_host", inside), batch,
+                   torch.float64)
+    walk = run_rows(rows_entry(host_lib, "em_rows_walk_host", inside), batch,
+                    torch.float64)
+    for name in ("a", "b", "ll", "it_done", "done", "failed"):
+        assert same_bits(got[name], walk[name]), name
+    assert got["ok"].sum() > len(batch.n) // 2
 
 
 @pytest.mark.parametrize("kw", [
