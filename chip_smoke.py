@@ -16,8 +16,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    grid, flanks far shorter than the table, lengths 0, 1,024-base reads
    that match or mismatch everywhere: the int16 range); the tie columns at
    the rows of ``utils.synth.tie_rows`` (-1, 0, the read's last row, the
-   one past it, L, duplicates) and across the 32-column words
-   (``tie_boundary_case``); the screen timed at the discover path's shape;
+   one past it, L, duplicates), across the 32-column words
+   (``tie_boundary_case``) and with 40 rows an instance (more captured
+   rows than a lane group keeps, so the kernel runs its DP twice); the
+   screen timed at the discover path's shape;
 4. scale: the screen over a tumour-library candidate set (1,048,576
    reads of 100 bp against 4,096 flank pairs up to 480 bp): kernel time,
    an exact check against the plain version on a 65,536-read subsample,
@@ -63,14 +65,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``DEFUSE_NO_NATIVE=1``, on the dataset cut to NO_NATIVE_FUSIONS fusions
    and NO_NATIVE_BACKGROUND background pairs (the Python EM and the Python
    realign take seconds there): artifacts byte-identical to the native
-   route's on the same input, one ``rowmax_kernel`` and two ``tie_kernel``
-   launches for one row-maxima and two tie-column calls, and no plain
-   version on a CUDA tensor; both kernels against their plain versions (the
-   tie columns also against the same call on CPU tensors, bit for bit) and
-   timed on the route's own operands, alone (from a CUDA graph), as a
-   wrapper call and beside their plain versions, with the row maxima's own
-   instructions (``split_dp_census.census_rowmax``) priced at the probe's
-   rates; then a second child on the same input with
+   route's on the same input, one ``rowmax_kernel`` and one ``tie_kernel``
+   launch for one row-maxima call and one tie-column call of both sides,
+   and no plain version on a CUDA tensor; both kernels against their plain
+   versions (the tie columns also against the same call on CPU tensors,
+   bit for bit) and timed on the route's own operands, alone (from a CUDA
+   graph), as a wrapper call and beside their plain versions, with the row
+   maxima's own instructions (``split_dp_census.census_rowmax``) priced at
+   the probe's rates; the tie kernel also on operands made from the
+   route's (``utils.time_rowmax.tie_variants``: each side alone, one
+   captured row an instance, side 1 tiled eight times, the lone pair with
+   the most rows, two instances that capture nothing: the launch floor),
+   each == plain; then a second child on the same input with
    ``em_mode="device"``, the batched EM on the card in place of the Python
    oracle: the same bytes again, ``em_impl == "cuda"``, ``em_rows_kernel``
    launched and the plain EM loop run on no CUDA tensor, and its
@@ -333,6 +339,7 @@ def phase_kernel_equals_plain(card, dev, rng):
     from defuse_tpu_torch.ops.split_dp_cuda import (dp_row_maxima_cuda,
                                                     screen_candidates)
     from defuse_tpu_torch.utils.synth import (EDGE_CASES, edge_case,
+                                              sweep_inputs,
                                               tie_boundary_case, tie_rows)
     err_rowmax = err_screen = err_tie = 0
     shapes = ((60, 24), (90, 24), (100, 24), (130, 64), (128, 64),
@@ -387,10 +394,17 @@ def phase_kernel_equals_plain(card, dev, rng):
         dev, (*arrays, tie_rows(arrays[3], arrays[2].shape[1], 7)))
     err_tie = max(err_tie, e)
     check(e == 0, "tie kernel differs from plain at the word boundaries")
+    # 40 rows an instance: a group captures more rows than it keeps slots
+    arrays = sweep_inputs(200, 64, seed=3, B=24)
+    e, (_max, packed) = tie_equals_plain(
+        dev, (*arrays, tie_rows(arrays[3], 64, 40, seed=9)))
+    err_tie = max(err_tie, e)
+    check(e == 0 and bool(packed.any()),
+          "tie kernel differs from plain with 40 rows an instance")
     say(card, "kernel == plain (exact), all three, on the edge cases "
               f"{sorted(EDGE_CASES)}; tie columns with rows -1, 0, the "
-              "read's last, past it, L and duplicates, and flanks of 30-32 "
-              "and 62-64 bases")
+              "read's last, past it, L and duplicates, flanks of 30-32 "
+              "and 62-64 bases, and 40 rows an instance (two passes)")
     return err_rowmax, err_screen, err_tie
 
 
@@ -1153,13 +1167,13 @@ def no_native_child(work, device, em_mode):
     launches = dict(split_dp_cuda.LAUNCHES) | em_cuda.LAUNCHES
     for name, fn in plain.items():
         setattr(split_dp_batch, name, fn)
-    check(len(seen["rowmax"]) == 1 and len(seen["tie"]) == 2,
+    check(len(seen["rowmax"]) == 1 and len(seen["tie"]) == 1,
           f"route called rowmax {len(seen['rowmax'])} and dp_tie_columns "
           f"{len(seen['tie'])} times")
     if device == "cuda":
         check(launches["split_dp_rowmax"] == 1
-              and launches["split_dp_tie_columns"] == 2,
-              f"route launched {launches} for 1 rowmax and 2 tie calls")
+              and launches["split_dp_tie_columns"] == 1,
+              f"route launched {launches} for 1 rowmax and 1 tie call")
         check(seen["plain_on_card"] == 0,
               f"a plain version ran {seen['plain_on_card']} times on the card")
     check_no_reference_modules()
@@ -1212,8 +1226,30 @@ def no_native_child(work, device, em_mode):
             "cells": int((rows.astype(np.int64) * (ref_lens + 1)).sum()),
             "bytes": sum(t.numel() * t.element_size() for t in ops)
             + sum(4 * w.numel() for w in want)})
+    rec["tie_variants"] = tie_variant_times(tie, plain["dp_tie_columns"],
+                                            seen["tie"][0])
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def tie_variant_times(tie, plain, ops):
+    """The tie kernel on operands made from the route's one call of both
+    sides (``utils.time_rowmax.tie_variants``), each == plain on the card:
+    its kernel alone (CUDA graph) and wrapper call, by variant."""
+    from defuse_tpu_torch.utils.time_rowmax import tie_variants
+    call = [t.cpu().numpy() for t in ops]
+    half = call[0].shape[0] // 2
+    sides = [[a[:half] for a in call], [a[half:] for a in call]]
+    out = {}
+    for name, arrays in tie_variants(sides).items():
+        ts = [torch.from_numpy(np.ascontiguousarray(a)).to(ops[0].device)
+              for a in arrays]
+        check(all(torch.equal(g, w) for g, w in zip(tie(*ts), plain(*ts))),
+              f"tie kernel differs from plain on the route's {name}")
+        out[name] = {"instances": int(ts[0].shape[0]),
+                     "ms": time_ms(lambda: tie(*ts), 20, graph=True),
+                     "call_ms": time_ms(lambda: tie(*ts), 20)}
+    return out
 
 
 def no_native_device_em(card, cut, device, recs):
@@ -1300,7 +1336,7 @@ def phase_no_native(card, work, device):
     check(counters["counters"].get("split_dp_impl") == IMPL[device],
           "no-native: split_dp_impl")
     check(rec["launches"]["split_dp_rowmax"] == 1
-          and rec["launches"]["split_dp_tie_columns"] == 2,
+          and rec["launches"]["split_dp_tie_columns"] == 1,
           f"no-native: launches {rec['launches']}")
     check(rec["err"] == 0, "rowmax kernel differs from plain on the "
                            "route's operands")
@@ -1322,6 +1358,13 @@ def phase_no_native(card, work, device):
                   f"{t['ms']:.4f} ms, wrapper call {t['call_ms']:.4f} ms, "
                   f"plain {t['plain_ms']:.3f} ms" for t in rec["tie"])
               + " (the plain version on the card, PRs 5-8: 8.4-13.9 ms)")
+    v = rec["tie_variants"]
+    say(card, "tie kernel on operands made from the route's (== plain; "
+              "kernel alone | wrapper call, ms): " + "; ".join(
+                  f"{name} ({t['instances']}) {t['ms']:.4f} | "
+                  f"{t['call_ms']:.4f}" for name, t in v.items())
+              + f"; a warp's row chain (lone pair less the floor) "
+              f"{v['lone_pair']['ms'] - v['floor']['ms']:.4f} ms")
     no_native_device_em(card, cut, device, recs)
     rec["device_em"] = recs["device"]
     return rec
@@ -2030,6 +2073,9 @@ def phase_dryrun(card, device):
     check(all(k >= 3 for k in rowmax) or device == "cpu",
           f"dryrun: rowmax_kernel launches by rank {rowmax}")
     tie = [r["launches"]["split_dp_tie_columns"] for r in ranks]
+    # one tie launch for both sides of a realign call that has winners
+    check(device == "cpu" or all(1 <= t <= k for t, k in zip(tie, rowmax)),
+          f"dryrun: tie_kernel launches by rank {tie}, rowmax {rowmax}")
     em_launches = [r["launches"]["em_rows_kernel"] for r in ranks]
     check(all(k >= 2 for k in em_launches) or device == "cpu",
           f"dryrun: em_rows_kernel launches by rank {em_launches}")
@@ -2473,7 +2519,7 @@ def main() -> int:
         "instances": no_native["instances"], "R": no_native["R"],
         "L": no_native["L"], "cells": no_native["cells"],
         "entry": {k: entry_rec[k] for k in ("ms", "plain_ms")}}
-    # the route's two tie calls, the slower one as the kernel's reading
+    # the route's one tie call of both sides
     ties = no_native["tie"]
     for t in ties:
         t["bound_ms"], t["bound_by"] = bound(
@@ -2489,7 +2535,10 @@ def main() -> int:
            "max_abs_err": max(err_tie, *(t["err"] for t in ties)),
            "ms": slow["ms"], "plain_ms": slow["plain_ms"],
            "bound_ms": slow["bound_ms"], "bound_by": slow["bound_by"],
-           "library_ms": None, "call_ms": slow["call_ms"], "calls": ties}
+           "library_ms": None, "call_ms": slow["call_ms"], "calls": ties,
+           "launch_floor_ms": no_native["tie_variants"]["floor"]["ms"],
+           "lone_pair_ms": no_native["tie_variants"]["lone_pair"]["ms"],
+           "variants": no_native["tie_variants"]}
     say(card, f"rowmax_kernel's own instructions on the route (the census of "
               f"its row loop, {no_native['census']}) at the probe's rates: "
               f"{rowmax['census_ms']:.4f} ms, "

@@ -286,15 +286,15 @@ def realign_candidates(realigner, candidates: list[Candidate],
     win_idx = [b for (b, _s, _k) in winners]
     max_rows = max(max(len(wanted1[b]), len(wanted2[b]))
                    for b in win_idx)
-    cols1_map = _device_tie_columns(
-        [ref1s[b] for b in win_idx], [reads[b] for b in win_idx],
-        [sorted(wanted1[b]) for b in win_idx], win_idx, R, max_rows,
-        r1l[win_idx], device)
-    cols2_map = _device_tie_columns(
-        [ref2s[b][::-1] for b in win_idx],
-        [reads[b][::-1] for b in win_idx],
-        [sorted(wanted2[b]) for b in win_idx], win_idx, R, max_rows,
-        r2l[win_idx], device)
+    # both sides in one call: flank 1 with the read, reversed flank 2 with
+    # the reversed read
+    cols1_map, cols2_map = _device_tie_columns(
+        [([ref1s[b] for b in win_idx], [reads[b] for b in win_idx],
+          [sorted(wanted1[b]) for b in win_idx], r1l[win_idx]),
+         ([ref2s[b][::-1] for b in win_idx],
+          [reads[b][::-1] for b in win_idx],
+          [sorted(wanted2[b]) for b in win_idx], r2l[win_idx])],
+        win_idx, R, max_rows, device)
 
     out_rows: list[SplitRow] = []
     for (b, max_score, ks) in winners:
@@ -334,40 +334,49 @@ def _pad_len(x: int, mult: int = 128) -> int:
     return (x + mult - 1) // mult * mult
 
 
-def _device_tie_columns(refs, reads, wanted_rows, win_idx, R, max_rows,
-                        ref_lens_sub, device="cuda"):
+def _device_tie_columns(sides, win_idx, R, max_rows, device="cuda"):
     """Tie columns via ``ops.split_dp_cuda.dp_tie_columns_cuda`` on
-    ``device`` (the kernel on a CUDA device, the plain version on the CPU).
-    Returns {(original_b, j): [columns]} (anchored-max semantics built
-    in: rows whose max is below MIN_SPLIT_SCORE get no columns)."""
+    ``device`` (the kernel on a CUDA device, the plain version on the CPU),
+    every side in one call.  ``sides`` holds (refs, reads, wanted_rows,
+    ref_lens_sub) of the candidates ``win_idx``, each side as the
+    reference's ``_device_tie_columns`` takes it.  Returns one
+    {(original_b, j): [columns]} a side (anchored-max semantics built in:
+    rows whose max is below MIN_SPLIT_SCORE get no columns)."""
     from ..convert import tie_operands
     from ..core.devices import require_cuda
     from ..ops.split_dp_batch import pad_batch
     from ..ops.split_dp_cuda import dp_tie_columns_cuda
 
-    B = len(refs)
-    L = _pad_len(max(len(r) for r in reads), 64)
-    refs_p, _rl = pad_batch(refs, R)
-    reads_p, _ql = pad_batch(reads, L)
-    row_sel = np.full((B, max_rows), -1, dtype=np.int32)
-    for i, rows in enumerate(wanted_rows):
+    B = len(win_idx)
+    L = _pad_len(max(len(r) for _refs, reads, _w, _l in sides
+                     for r in reads), 64)
+    refs_p, _rl = pad_batch([r for refs, *_ in sides for r in refs], R)
+    reads_p, _ql = pad_batch([r for _refs, reads, *_ in sides
+                              for r in reads], L)
+    row_sel = np.full((B * len(sides), max_rows), -1, dtype=np.int32)
+    wanted = [rows for _refs, _reads, side_rows, _l in sides
+              for rows in side_rows]
+    for i, rows in enumerate(wanted):
         row_sel[i, :len(rows)] = rows
     rowmax, packed = dp_tie_columns_cuda(*tie_operands(
         refs_p, _rl, reads_p, _ql, row_sel, require_cuda(device)))
     packed = np.ascontiguousarray(packed.cpu().numpy())
     rowmax = rowmax.cpu().numpy()
-    result = {}
     W = packed.shape[2]
     bits = np.unpackbits(
-        packed.view(np.uint8).reshape(B, max_rows, W, 4),
-        axis=3, bitorder="little").reshape(B, max_rows, W * 32)
-    for i, rows in enumerate(wanted_rows):
-        b = win_idx[i]
-        n_ref = int(ref_lens_sub[i])
-        for m, j in enumerate(rows):
-            if rowmax[i, m] < MIN_SPLIT_SCORE:
-                result[(b, j)] = []
-            else:
-                result[(b, j)] = np.nonzero(
-                    bits[i, m, :n_ref + 1])[0].tolist()
-    return result
+        packed.view(np.uint8).reshape(len(wanted), max_rows, W, 4),
+        axis=3, bitorder="little").reshape(len(wanted), max_rows, W * 32)
+    out = []
+    for k, (_refs, _reads, side_rows, ref_lens_sub) in enumerate(sides):
+        result = {}
+        for i, rows in enumerate(side_rows):
+            b, row = win_idx[i], k * B + i
+            n_ref = int(ref_lens_sub[i])
+            for m, j in enumerate(rows):
+                if rowmax[row, m] < MIN_SPLIT_SCORE:
+                    result[(b, j)] = []
+                else:
+                    result[(b, j)] = np.nonzero(
+                        bits[row, m, :n_ref + 1])[0].tolist()
+        out.append(result)
+    return out

@@ -65,13 +65,14 @@
 //   nothing of the rest.
 // * Row maxima leave the row loop as one shared-memory store a lane; every
 //   32 rows the group reduces its tile transposed (a lane takes whole rows).
-// * Tie columns (tie_kernel) keep no rows: the DP runs to the largest row a
-//   warp selects, and at a selected row the group reduces its row min by
-//   shuffles, and each lane tests its own columns against it in the z
-//   registers (z + 2i == min) and ORs the hits into the row's words in
-//   shared memory, written once to each slot that names the row.  Its bound
-//   is the same integer issue over the cells up to each instance's largest
-//   selected row.
+// * Tie columns (tie_kernel) keep no rows: the DP runs to the last row a
+//   warp captures, and at a captured row each lane keeps, in shared memory,
+//   the min of its own columns and the bits of those that reach it; after
+//   the loop the group reduces them and writes every entry in one pass
+//   (tie_rows.cuh, whose row step repeats this one).  Its bound is the same
+//   integer issue over the cells up to each instance's largest selected
+//   row; at the no-native route's shape (a few thousand instances, 50 rows)
+//   its time is the latency of a warp's row chain and the launch.
 //
 // Value ranges (int16): j <= 1024 rows, i <= 1023.  Valid w = col+2i+2j lies
 // in [0, 4j+2i] <= 6142 (col in [-2j, 2j]); w + s <= 6148.  Left of column 0
@@ -81,6 +82,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "tie_rows.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -89,6 +94,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTileRows = 32;
 constexpr int kFar = 20000;
 constexpr int kMaxRead = 1024;
+constexpr int kTieSlots = 32;       // captured rows a tie group keeps a pass
+constexpr int kTieSelections = 64;  // row selections a half kept in shared
 
 struct Scores {
   int match, mismatch, gap, min_split;
@@ -302,211 +309,29 @@ rowmax_kernel(const uint8_t* __restrict__ refs,
   }
 }
 
-// Tie columns.  Shared memory of one group: the negated read characters of
-// each row, the rows each half captures (one bit a row, a set per half) and
-// the tie words of the row being captured, per half.
-__host__ __device__ inline int row_set_words(int L) { return (L + 32) / 32; }
-constexpr int kMaxWords = 32;  // (R+1)/32 words a captured row, R+1 <= 1024
-
-__host__ __device__ inline int tie_smem_words(int L) {
-  return align16(L) + 2 * align16(row_set_words(L)) + 2 * kMaxWords;
-}
-
-// Where one half's captured rows go: its instance's M row selections and
-// output slots (rowmax[m], packed[m*W .. m*W+W-1]).
-struct Slots {
-  const int* sel;
-  int* rowmax;
-  int* packed;
-  bool live;
-};
-
-// OR the tie bits of a lane's C <= 32 columns, DP columns base..base+C-1,
-// into the row's words (only columns >= 0 can tie).
-__device__ __forceinline__ void set_bits(unsigned* words, unsigned bits,
-                                         int base) {
-  if (!bits) return;
-  const unsigned long long v = (unsigned long long)bits << (base & 31);
-  const int w = base >> 5;  // floor: -1 for a lane that starts left of 0
-  if ((unsigned)v) atomicOr(&words[w], (unsigned)v);
-  if ((unsigned)(v >> 32)) atomicOr(&words[w + 1], (unsigned)(v >> 32));
-}
-
-// The captured row j into every slot of the half that selects it.
-template <int LANES>
-__device__ __forceinline__ void emit(const Slots& s, int M, int W, int j,
-                                     int score, const unsigned* words,
-                                     int g) {
-  for (int m = 0; m < M; ++m) {
-    if (s.sel[m] != j) continue;
-    if (g == 0) s.rowmax[m] = score;
-    for (int w = g; w < W; w += LANES) s.packed[m * W + w] = (int)words[w];
-  }
-}
-
-// The rows of one warp up to `rows` (the largest row any group selects),
-// with dp_rows' registers and row step, repeated here: the step moved into
-// a helper shared with dp_rows put the screen's columns in local memory
-// (measured: 5.5 times its time).  At a row that any group captures
-// the whole warp stops: each capturing group reduces its row min, and where
-// a half's max clears the anchor each lane sets the bits of its own
-// columns that reach it, z[c] + 2i == min_i(z + 2i), before the words go
-// to every slot that names the row.
-template <int C, int LANES>
-__device__ __forceinline__ void tie_rows(const Pair& pr, int rows,
-                                         int min_split, int g,
-                                         const unsigned* cap_lo,
-                                         const unsigned* cap_hi,
-                                         unsigned* words_lo,
-                                         unsigned* words_hi, const Slots& lo,
-                                         const Slots& hi, int M, int W) {
-  constexpr int CW = LANES * C;
-  const int off_lo = CW - 1 - pr.len_lo, off_hi = CW - 1 - pr.len_hi;
-  unsigned rc[C], z[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int a = g * C + c - off_lo, b = g * C + c - off_hi;
-    const unsigned lo_ch = a >= 1 ? pr.ref_lo[a - 1] : 0u;
-    const unsigned hi_ch = b >= 1 ? pr.ref_hi[b - 1] : 0u;
-    rc[c] = (lo_ch << 2) | (hi_ch << 18);
-    z[c] = pack2(a >= 0 ? -2 * a : kFar, b >= 0 ? -2 * b : kFar);
-  }
-  const unsigned lane_term =
-      pack2(2 * (g * C - off_lo), 2 * (g * C - off_hi));
-  constexpr unsigned kFar2 = pack2(kFar, kFar);
-  unsigned left = __shfl_up_sync(kFull, z[C - 1], 1, LANES);
-  if (g == 0) left = kFar2;
-
-  const unsigned* nrd_row = pr.nrd;
-  for (int j = 1; j <= rows; ++j) {
-    const unsigned nrd = *nrd_row++;
-    // dp_rows' row step
-#pragma unroll
-    for (int c = C - 1; c >= 0; --c) {
-      const unsigned diag = (c == 0) ? left : z[c - 1];
-      const unsigned miss = __viaddmin_u16x2(rc[c], nrd, 0x00030003u);
-      z[c] = __viaddmin_s16x2(__vadd2(diag, miss), pack2(-6, -6), z[c]);
-    }
-    unsigned tail = z[0];
-#pragma unroll
-    for (int c = 1; c + 1 < C; c += 2) tail = __vimin3_s16x2(tail, z[c], z[c + 1]);
-    if constexpr (C % 2 == 0) tail = __vmins2(tail, z[C - 1]);
-#pragma unroll
-    for (int d = 1; d < LANES; d <<= 1)
-      tail = __vmins2(tail, __shfl_up_sync(kFull, tail, d, LANES));
-    left = __shfl_up_sync(kFull, tail, 1, LANES);
-    if (g == 0) left = kFar2;
-    unsigned run = left, best = kFar2;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      run = __vmins2(run, z[c]);
-      z[c] = run;
-      best = __viaddmin_s16x2(run, pack2(2 * c, 2 * c), best);
-    }
-
-    const unsigned f = ((cap_lo[j >> 5] >> (j & 31)) & 1u) |
-                       (((cap_hi[j >> 5] >> (j & 31)) & 1u) << 1);
-    if (!__any_sync(kFull, f)) continue;
-    unsigned m = __vadd2(best, lane_term);
-#pragma unroll
-    for (int d = LANES / 2; d >= 1; d >>= 1)
-      m = __vmins2(m, __shfl_xor_sync(kFull, m, d, LANES));
-    const int s_lo = -lo16(m) - 2 * j, s_hi = -hi16(m) - 2 * j;
-    const bool a_lo = (f & 1u) && s_lo >= min_split;
-    const bool a_hi = (f & 2u) && s_hi >= min_split;
-    for (int w = g; w < W; w += LANES) words_lo[w] = words_hi[w] = 0u;
-    __syncwarp();
-    if (a_lo || a_hi) {
-      const unsigned target = __vsub2(m, lane_term);
-      unsigned bits_lo = 0u, bits_hi = 0u;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const unsigned eq =
-            __vcmpeq2(__vadd2(z[c], pack2(2 * c, 2 * c)), target);
-        bits_lo |= (eq & 1u) << c;
-        bits_hi |= (eq >> 31) << c;
-      }
-      if (a_lo) set_bits(words_lo, bits_lo, g * C - off_lo);
-      if (a_hi) set_bits(words_hi, bits_hi, g * C - off_hi);
-    }
-    __syncwarp();
-    if (f & 1u) emit<LANES>(lo, M, W, j, a_lo ? s_lo : 0, words_lo, g);
-    if (f & 2u) emit<LANES>(hi, M, W, j, a_hi ? s_hi : 0, words_hi, g);
-    __syncwarp();
-  }
-}
-
 // Two instances a group (2p in the low half, 2p+1 in the high half), as
-// rowmax_kernel pairs them.  Rows come from the read as stored, pad
-// included, as in the plain version.
+// rowmax_kernel pairs them; the group's code is tie_rows.cuh's.  Rows come
+// from the read as stored, pad included, as in the plain version.
 template <int CMAX, int LANES>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-tie_kernel(const uint8_t* __restrict__ refs,
-           const int* __restrict__ ref_lens, int R,
-           const uint8_t* __restrict__ reads, int L,
-           const int* __restrict__ row_sel, int M,
-           int* __restrict__ rowmax, int* __restrict__ packed, int B,
-           Scores sc) {
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, 1)
+tie_kernel(tie::Args a) {
   extern __shared__ __align__(16) unsigned smem[];
-  const int g = threadIdx.x % LANES;
-  const int W = (R + 1 + 31) / 32;
+  TIE_PHASE(0);
+  const tie::WarpTeam<LANES> t{(int)(threadIdx.x % LANES)};
   const int64_t pair =
       ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
-  const int64_t b0 = 2 * pair;
-  // a group past the end stays for the warp's shuffles, on nothing
-  const bool one = b0 < B, two = b0 + 1 < B;
-  const int64_t i0 = one ? b0 : 0, i1 = two ? b0 + 1 : i0;
-  unsigned* nrd = smem + (threadIdx.x / LANES) * tie_smem_words(L);
-  unsigned* cap_lo = nrd + align16(L);
-  unsigned* cap_hi = cap_lo + align16(row_set_words(L));
-  unsigned* words_lo = cap_hi + align16(row_set_words(L));
-  unsigned* words_hi = words_lo + kMaxWords;
-  const Slots lo{row_sel + i0 * M, rowmax + i0 * M, packed + i0 * M * W, one};
-  const Slots hi{row_sel + i1 * M, rowmax + i1 * M, packed + i1 * M * W, two};
-
-  // the rows each half captures; a slot that names no row of the DP (-1,
-  // row 0, past L) gets max 0 and no bits now
-  for (int w = g; w < row_set_words(L); w += LANES) cap_lo[w] = cap_hi[w] = 0u;
-  __syncwarp();
-  int last = 0;
-  for (int t = g; t < 2 * M; t += LANES) {
-    const Slots& s = t < M ? lo : hi;
-    const int m = t < M ? t : t - M;
-    if (!s.live) continue;
-    const int j = s.sel[m];
-    if (j >= 1 && j <= L) {
-      atomicOr(&(t < M ? cap_lo : cap_hi)[j >> 5], 1u << (j & 31));
-      last = max(last, j);
-    } else {
-      s.rowmax[m] = 0;
-      for (int w = 0; w < W; ++w) s.packed[m * W + w] = 0;
-    }
-  }
-  const int rows = __reduce_max_sync(kFull, last);
-  const uint8_t* rd0 = reads + i0 * L;
-  const uint8_t* rd1 = reads + i1 * L;
-  for (int p = g; p < rows; p += LANES)
-    nrd[p] = neg4(rd0[p]) | (neg4(rd1[p]) << 16);
-  __syncwarp();
-
-  Pair pr;
-  pr.ref_lo = refs + i0 * R;
-  pr.ref_hi = refs + i1 * R;
-  pr.len_lo = one ? min(max(ref_lens[i0], 0), R) : 0;
-  pr.len_hi = two ? min(max(ref_lens[i1], 0), R) : 0;
-  pr.nrd = nrd;
-  // columns a lane rounded up to a multiple of 4 (or CMAX): a quarter of
-  // the row loops to compile, for at most 3 columns a lane more
-  const int need = __reduce_max_sync(kFull, max(pr.len_lo, pr.len_hi) + 1);
-  const int cols = min(((need + LANES - 1) / LANES + 3) / 4 * 4, CMAX);
-#define TIE_CASE(K)                                                        \
-  case K:                                                                  \
-    if constexpr (K <= CMAX && (K % 4 == 0 || K == CMAX))                  \
-      tie_rows<K, LANES>(pr, rows, sc.min_split, g, cap_lo, cap_hi,        \
-                         words_lo, words_hi, lo, hi, M, W);                \
-    break;
-  switch (cols) { FOR_COLUMNS(TIE_CASE) }
-#undef TIE_CASE
+  tie::Pair pr = tie::make_pair(a, pair);
+  const tie::Mem s = tie::carve(
+      smem + (threadIdx.x / LANES) * tie::group_words(a.L, a.S, a.MC, LANES),
+      a.L, a.S, a.MC, LANES);
+  const tie::Plan own = tie::prologue<LANES>(t, a, pr, s);
+  TIE_PHASE(1);
+  // the warp runs its widest flank's columns, to its last captured row
+  const tie::Plan warp{__reduce_max_sync(kFull, own.need),
+                       __reduce_max_sync(kFull, own.rows),
+                       __reduce_max_sync(kFull, own.passes)};
+  tie::run_group<CMAX, LANES>(t, a, pr, s, warp);
+  TIE_PHASE(6);
 }
 
 // One candidate a group: flank 1 and the read in the low half, the reversed
@@ -659,24 +484,26 @@ int split_dp_tie_columns(const void* refs, const void* ref_lens, int R,
   const Shape sh = shape_for(R);
   if (!scores_supported(sc) || L > kMaxRead || !sh.lanes)
     return (int)cudaErrorInvalidValue;
-  const size_t shmem =
-      (size_t)(kWarp * kWarpsPerBlock / sh.lanes) * tie_smem_words(L) * 4;
+  // slots a group: every row it can capture, up to kTieSlots a pass; the
+  // row selections in shared memory: up to kTieSelections a half
+  const int S = std::max(1, std::min({2 * M, L, kTieSlots}));
+  const int MC = std::min(M, kTieSelections);
+  const tie::Args a{static_cast<const uint8_t*>(refs),
+                    static_cast<const int*>(ref_lens), R,
+                    static_cast<const uint8_t*>(reads), L,
+                    static_cast<const int*>(row_sel), M,
+                    static_cast<int*>(rowmax), static_cast<int*>(packed),
+                    B, S, MC, min_split};
+  const size_t shmem = (size_t)(kWarp * kWarpsPerBlock / sh.lanes) *
+                       tie::group_words(L, S, MC, sh.lanes) * 4;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const uint8_t*>(refs);
-  const auto* fl = static_cast<const int*>(ref_lens);
-  const auto* r = static_cast<const uint8_t*>(reads);
-  const auto* sel = static_cast<const int*>(row_sel);
-  auto* rm = static_cast<int*>(rowmax);
-  auto* pk = static_cast<int*>(packed);
   const dim3 grid = grid_for(((int64_t)B + 1) / 2, sh.lanes);
   const dim3 block(kWarp * kWarpsPerBlock);
   cudaError_t e = cudaErrorInvalidValue;
 #define LAUNCH(LN, CM)                                                      \
   if (sh.lanes == LN && sh.cmax == CM) {                                    \
     e = allow_smem(tie_kernel<CM, LN>, shmem);                              \
-    if (e == cudaSuccess)                                                   \
-      tie_kernel<CM, LN><<<grid, block, shmem, st>>>(f, fl, R, r, L, sel,   \
-                                                     M, rm, pk, B, sc);     \
+    if (e == cudaSuccess) tie_kernel<CM, LN><<<grid, block, shmem, st>>>(a); \
   }
   FOR_SHAPES(LAUNCH)
 #undef LAUNCH
@@ -719,5 +546,13 @@ int split_dp_screen(const void* uref1, const void* ulen1, const void* uref2r,
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#ifdef TIE_PHASE_CLOCK
+// The phase clock's stamps (kClockWarps x kPhases int64) into dst.
+int tie_phase_clock(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, tie::clock_at,
+                                   sizeof(tie::clock_at));
+}
+#endif
 
 }  // extern "C"

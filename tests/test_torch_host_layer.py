@@ -51,8 +51,10 @@ DIVERGED = {
         "the screen goes to ops/split_dp_cuda.screen_candidates, "
         "realign_candidates and _device_tie_columns take the device their "
         "torch operands go to (convert.tie_operands), and the tie columns "
-        "go to ops/split_dp_cuda.dp_tie_columns_cuda: the hand kernel on a "
-        "CUDA device, the plain version on the CPU",
+        "of both sides go to one ops/split_dp_cuda.dp_tie_columns_cuda "
+        "call (_device_tie_columns takes a list of sides and returns a map "
+        "a side): the hand kernel on a CUDA device, the plain version on "
+        "the CPU",
         ("Candidate", "collect_candidates", "_np_rows",
          "collect_candidates_native", "_native_rows",
          "realign_candidates_native", "_columns", "_pad_len")),
@@ -185,9 +187,9 @@ def test_tie_column_enumeration_names_its_roadmap_item():
     tensors, and a card that is absent raises instead of moving the call."""
     import torch
     from defuse_tpu_torch.align import batch_realign
-    args = (["ACGTACGTAC"], ["ACGTACGTAC"], [[10]], [7], 128, 1, [10])
+    args = ([(["ACGTACGTAC"], ["ACGTACGTAC"], [[10]], [10])], [7], 128, 1)
     assert batch_realign._device_tie_columns(*args, device="cpu") == \
-        {(7, 10): [10]}
+        [{(7, 10): [10]}]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             batch_realign._device_tie_columns(*args)

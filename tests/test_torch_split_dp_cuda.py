@@ -105,6 +105,38 @@ def test_tie_kernel_matches_plain_on_edge_cases(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_tie_kernel_with_many_rows(cuda_device):
+    """40 rows an instance: more captured rows than a lane group keeps, so
+    the kernel runs its DP a second time."""
+    arrays = sweep_inputs(200, 64, seed=3, B=24)
+    _rowmax, packed = assert_tie_equal(
+        cuda_device, (*arrays, tie_rows(arrays[3], 64, 40, seed=9)))
+    assert bool(packed.any())
+
+
+@pytest.mark.cuda
+def test_one_tie_launch_for_both_sides(cuda_device):
+    """``realign_candidates``'s one call of both sides: one launch, and each
+    side's {(candidate, row): columns} map equal to the call on CPU
+    tensors."""
+    from defuse_tpu_torch.align.batch_realign import _device_tie_columns
+    rng = np.random.default_rng(5)
+    refs = ["".join(rng.choice(list("ACGT"), int(rng.integers(150, 210))))
+            for _ in range(40)]
+    reads = [r[-25:] + "".join(rng.choice(list("ACGT"), 25)) for r in refs]
+    sides = [(refs[:20], reads[:20], [[25, 50]] * 20,
+              np.array([len(r) for r in refs[:20]], np.int32)),
+             (refs[20:], reads[20:], [[25, 0]] * 20,
+              np.array([len(r) for r in refs[20:]], np.int32))]
+    win_idx = list(range(20))
+    want = _device_tie_columns(sides, win_idx, 256, 2, device="cpu")
+    split_dp_cuda.reset_launches()
+    got = _device_tie_columns(sides, win_idx, 256, 2, device="cuda")
+    assert split_dp_cuda.LAUNCHES["split_dp_tie_columns"] == 1
+    assert got == want and any(want[0].values())
+
+
+@pytest.mark.cuda
 def test_launches_are_counted_on_card(cuda_device):
     split_dp_cuda.reset_launches()
     ops = screen_operands(*screen_case(), cuda_device)

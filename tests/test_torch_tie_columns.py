@@ -145,15 +145,15 @@ def test_tie_operands_need_cuda_when_asked():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")
     with pytest.raises(RuntimeError, match="is_available"):
-        port_realign._device_tie_columns(["ACGT"], ["ACGT"], [[4]], [0],
-                                         128, 1, [4], device="cuda")
+        port_realign._device_tie_columns([(["ACGT"], ["ACGT"], [[4]], [4])],
+                                         [0], 128, 1, device="cuda")
 
 
 @pytest.mark.parametrize("seed", [3, 4])
 def test_device_tie_columns_dict_matches_jax(seed):
-    """``_device_tie_columns`` as ``realign_candidates`` calls it, through
-    ``dp_tie_columns_cuda`` on CPU tensors: the {(candidate, row):
-    columns} dict equals the JAX package's."""
+    """``_device_tie_columns`` on one side, through ``dp_tie_columns_cuda``
+    on CPU tensors: the {(candidate, row): columns} dict equals the JAX
+    package's (both sides in one call: ``test_torch_tie_kernel.py``)."""
     rng = np.random.default_rng(seed)
     refs, reads, wanted, lens = [], [], [], []
     for b in range(9):
@@ -168,10 +168,12 @@ def test_device_tie_columns_dict_matches_jax(seed):
         wanted.append(sorted({len(read), len(read) // 2, 0}
                              if b % 3 else {len(read)}))
     win_idx = [10 + b for b in range(9)]
-    args = (refs, reads, wanted, win_idx, 128, 3, np.array(lens, np.int32))
-    want = jax_realign._device_tie_columns(*args)
+    lens = np.array(lens, np.int32)
+    want = jax_realign._device_tie_columns(refs, reads, wanted, win_idx, 128,
+                                           3, lens)
     split_dp_cuda.reset_launches()
-    got = port_realign._device_tie_columns(*args, device="cpu")
+    got, = port_realign._device_tie_columns([(refs, reads, wanted, lens)],
+                                            win_idx, 128, 3, device="cpu")
     assert got == want
     assert split_dp_cuda.LAUNCHES["split_dp_tie_columns"] == 0
     assert any(want.values()) and not all(want.values())
