@@ -1,0 +1,363 @@
+"""Run one cell of the port's benchmark once.
+
+    python3 fusionbench/run.py --workload wts50.dense --seed 7 --seconds 10 \
+        --trace 0
+
+Set-up: import the port while a child process (``prepare.py``) builds or
+loads the configuration's reference dataset (``build/fusionbench/ref/``,
+once per configuration and generator) and generates from ``--seed`` a
+pool of two libraries as paired FASTQ; then warm up on one small library,
+which builds or loads the port's kernels.  The window: ``defuse run``
+through the port's command line (``defuse_tpu_torch.cli.main.main``) in
+this process, the pool's libraries back to back until ``--seconds`` have
+passed; earlier outputs are removed after it.  Then the last run of each
+pooled library is held to the plain reference (``compare.py``), and the
+last line of standard output is the result.  ``--trace 1`` profiles the window and reports the per-layer
+metrics (``metrics/<name>.py``) instead of the end-to-end ones.
+"""
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import contextlib  # noqa: E402
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import pathlib  # noqa: E402
+import shutil  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import traceback  # noqa: E402
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parent
+sys.path[:0] = [str(HERE), str(ROOT)]   # the benchmark's modules, the port
+
+import compare  # noqa: E402
+import devtrace  # noqa: E402
+import generator  # noqa: E402
+import observe  # noqa: E402
+import reference  # noqa: E402
+import roofline  # noqa: E402
+from prepare import CACHE, Cell, find, load_truth  # noqa: E402
+from spans import RssPeak, StageClock  # noqa: E402
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "defuse_tpu")
+
+
+def say(*parts) -> None:
+    print(*parts, file=sys.stderr, flush=True)
+
+
+def forbidden_modules() -> list[str]:
+    """Top-level names in ``sys.modules`` that the benchmark may not load,
+    compared whole (``defuse_tpu_torch`` is not ``defuse_tpu``)."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)} &
+                  set(FORBIDDEN))
+
+
+def out_bytes(path: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_library(config, dataset, fq1, fq2, out: pathlib.Path,
+                clock: StageClock, device: str) -> dict:
+    """``defuse run`` on one library through the port's command line;
+    its stage seconds and counters."""
+    from defuse_tpu_torch.cli.main import main as cli
+    from defuse_tpu_torch.ops import split_dp_cuda
+    split_dp_cuda.reset_launches()
+    clock.seconds = {}
+    t0, c0 = time.perf_counter(), os.times()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli(["run", "-c", str(config), "-d", str(dataset), "-1",
+                  str(fq1), "-2", str(fq2), "-o", str(out),
+                  "--device", device])
+    seconds = time.perf_counter() - t0
+    c1 = os.times()
+    if rc:
+        raise RuntimeError(f"run exited {rc}")
+    run_m = json.loads((out / "metrics.json").read_text())
+    disc_m = json.loads((out / "metrics.discover.json").read_text())
+    stages = {s["stage"]: s["seconds"] for s in run_m["stages"]}
+    host = sum(v for k, v in stages.items() if k != "discover") + \
+        clock.seconds.get("read stats", 0.0) + \
+        clock.seconds.get("covariance samples", 0.0)
+    counters = disc_m["counters"]
+    return {
+        "seconds": seconds,
+        # the process's CPU seconds (all threads): with ``seconds``, whether
+        # a slow library did its work slower or waited
+        "cpu_s": round(c1.user + c1.system - c0.user - c0.system, 3),
+        "frontend_s": clock.seconds.get("frontend", 0.0),
+        "discover_s": disc_m["total_seconds"],
+        "run_stages_s": host,
+        "stages": {k: round(v, 4) for k, v in
+                   (stages | clock.seconds).items()},
+        "launches": dict(split_dp_cuda.LAUNCHES),
+        "split_dp_impl": counters.get("split_dp_impl"),
+        "screen_candidates": counters.get("screen_candidates", 0),
+        "screen_survivors": counters.get("screen_survivors", 0),
+        "bytes_written": out_bytes(out),
+    }
+
+
+class ScreenWork:
+    """Counts the screen's DP cells from its operands' shapes, around the
+    program's ``screen_operands`` call in discover (a traced run only)."""
+
+    def __init__(self):
+        self.cells = 0
+        self.calls = 0
+
+    def __enter__(self):
+        from defuse_tpu_torch.pipeline import discover
+        self._saved = discover.screen_operands
+        saved, work = self._saved, self
+
+        def counted(u1p, u1l, u2rp, u2l, ref_idx, reads, read_lens, *rest):
+            work.cells += roofline.screen_cells(u1l, u2l, ref_idx, read_lens)
+            work.calls += 1
+            return saved(u1p, u1l, u2rp, u2l, ref_idx, reads, read_lens,
+                         *rest)
+
+        discover.screen_operands = counted
+        return self
+
+    def __exit__(self, *exc):
+        from defuse_tpu_torch.pipeline import discover
+        discover.screen_operands = self._saved
+
+
+@contextlib.contextmanager
+def profiled(traced: bool):
+    """``torch.profiler`` over the window, CPU and CUDA activity."""
+    if not traced:
+        yield None
+        return
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+
+
+class Context:
+    """What a per-layer metric's reader reads (``metrics/<name>.py``)."""
+
+    def __init__(self, libraries, trace, screen, peak_ops):
+        self.libraries = libraries
+        self.trace = trace
+        self.screen = screen
+        self.peak_ops = peak_ops
+
+
+def reader(root: pathlib.Path, name: str):
+    """The ``read(ctx)`` of the per-layer metric ``name``."""
+    spec = importlib.util.spec_from_file_location(
+        f"fusionbench_metric_{name}", find(root, "metrics", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def check_libraries(cell, prepared, kept) -> list[dict]:
+    """The compared numbers of each pooled library's last run."""
+    genes = generator.Genes.load(prepared["genes"])
+    readings = []
+    for k, out in sorted(kept.items()):
+        lib = load_truth(prepared["libs"][k]["truth"])
+        exp = reference.expected(lib, genes, cell.cfg)
+        obs = observe.read_run(out, genes, lib.n_pairs)
+        nums = compare.numbers(obs, exp, genes)
+        say(f"[check] library {k}: {json.dumps(nums)}")
+        readings.append(nums)
+    return readings
+
+
+def start_prepare(args, root, cache, work) -> subprocess.Popen:
+    """Set-up's data work (``prepare.py``) in a child process, kept off the
+    card."""
+    cmd = [sys.executable, str(HERE / "prepare.py"), "--workload",
+           args.workload, "--seed", str(args.seed), "--work", str(work),
+           "--root", str(root), "--cache", str(cache)]
+    return subprocess.Popen(cmd, env=os.environ | {"CUDA_VISIBLE_DEVICES": ""})
+
+
+def main(argv=None, *, require_card: bool = True, device: str = "cuda",
+         root: pathlib.Path = ROOT, cache: pathlib.Path = CACHE) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    cell = Cell(args.workload, root)
+
+    import torch
+    if require_card and (not torch.cuda.is_available() or
+                         torch.cuda.device_count() < cell.chips):
+        say(f"fusionbench: {cell.chips} CUDA device(s) needed, "
+            f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
+            " found")
+        return 3
+    base = os.environ.get("TMPDIR") or str(cache / "tmp")
+    pathlib.Path(base).mkdir(parents=True, exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="fusionbench-", dir=base))
+    child = start_prepare(args, root, cache, work)
+    try:
+        import defuse_tpu_torch.cli.main  # noqa: F401  (the program)
+        found = forbidden_modules()
+        if found:
+            say(f"fusionbench: forbidden modules loaded: {found}")
+            return 4
+        if child.wait():
+            raise RuntimeError(f"prepare.py exited {child.returncode}")
+        prepared = json.loads((work / "prepared.json").read_text())
+        return _measure(args, cell, prepared, work, device)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _measure(args, cell, prepared, work, device) -> int:
+    import torch
+    config, dataset = prepared["config"], prepared["dataset"]
+    traced = bool(args.trace)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with StageClock(traced) as clock:
+        rec = run_library(config, dataset, *prepared["warm"],
+                          work / "warm_out", clock, device)
+        shutil.rmtree(work / "warm_out")
+        say(f"[setup] warm-up library of {prepared['warm_pairs']} pairs: "
+            f"{rec['seconds']:.3f} s; FASTQ written "
+            f"{prepared['fastq_bytes']} bytes")
+        peak_hz = roofline.max_sm_clock_hz() if device == "cuda" else None
+        peak_ops = None if peak_hz is None else roofline.int_peak_ops(
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            peak_hz)
+
+        libraries, kept, passes, stale = [], {}, {}, []
+        attempted = failed = 0
+        screen = ScreenWork() if traced else contextlib.nullcontext()
+        setup_s = time.perf_counter() - T_START
+        with RssPeak() as rss, screen, profiled(traced) as prof:
+            span = clock.span("window") if traced else \
+                contextlib.nullcontext()
+            with span:
+                t_w0 = time.perf_counter()
+                t_last = t_w0
+                deadline = t_w0 + args.seconds
+                while time.perf_counter() < deadline:
+                    k = attempted % 2
+                    out = work / f"out{attempted}"
+                    attempted += 1
+                    try:
+                        with clock.span("library"):
+                            rec = run_library(config, dataset,
+                                              *prepared["libs"][k]["fq"],
+                                              out, clock, device)
+                    except Exception:
+                        failed += 1
+                        traceback.print_exc()
+                        stale.append(out)
+                        continue
+                    t_last = time.perf_counter()
+                    passes[k] = passes.get(k, 0) + 1
+                    rec |= {"pool": k, "pass": passes[k],
+                            "pairs": prepared["libs"][k]["pairs"]}
+                    libraries.append(rec)
+                    if k in kept:
+                        stale.append(kept[k])
+                    kept[k] = out
+                    say(f"[library] {json.dumps(rec)}")
+        window_s = t_last - t_w0
+        pairs = sum(r["pairs"] for r in libraries)
+        say(f"[window] {len(libraries)} libraries in {window_s:.3f} s; "
+            f"resident high-water mark {rss.start} bytes at the start, "
+            f"{rss.peak} at the end (reset: {rss.reset}, raised: "
+            f"{rss.raised})")
+    for out in stale:                 # the harness's own file work, after
+        shutil.rmtree(out, ignore_errors=True)
+
+    found = forbidden_modules()
+    if found:
+        say(f"fusionbench: forbidden modules loaded: {found}")
+        return 4
+    mem_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+    trace = None
+    if prof is not None:
+        events = devtrace.profiler_events(prof)
+        win = [(s, e) for n, dev, s, e in events
+               if not dev and n == devtrace.SPAN_PREFIX + "window"]
+        trace = devtrace.analyse(events, win[0])
+        say(f"[trace] busy {trace.busy_s:.6f} s of {trace.window_s:.6f} s; "
+            f"kernels {json.dumps(trace.kernels)}")
+    del prof
+
+    if not rss.exact:
+        say("fusionbench: the resident high-water mark was not reset and "
+            "the window did not raise it above set-up's: no peak to read")
+        return 5
+    readings = check_libraries(cell, prepared, kept)
+    off_card = sum(r["split_dp_impl"] != "cuda" or
+                   not r["launches"].get("split_dp_screen")
+                   for r in libraries) if device == "cuda" else 0
+    ok, worst = compare.judge(readings)
+    checks = {k: {"value": worst.get(k), "limit": lim}
+              for k, lim in compare.LIMITS.items()}
+    checks["screen_off_card"] = {"value": off_card, "limit": 0}
+    ok = ok and off_card == 0 and failed == 0 and bool(libraries)
+    for k, v in checks.items():
+        say(f"check {k}: {v['value']} (limit {v['limit']})")
+
+    if traced:
+        ctx = Context(libraries, trace, screen, peak_ops)
+        metrics = {}
+        for name in cell.per_layer:
+            value = reader(cell.root, name)(ctx)
+            if value is not None:
+                metrics[name] = {"value": value, "unit": cell.units[name]}
+    else:
+        metrics = {
+            "pairs_per_s": pairs / window_s if window_s > 0 else 0.0,
+            "peak_rss_gib": rss.peak / 2 ** 30,
+            "setup_s": setup_s,
+        }
+        metrics = {k: {"value": v, "unit": cell.units[k]}
+                   for k, v in metrics.items() if k in cell.end_to_end}
+    result = {
+        "correct": ok,
+        "attempted": attempted,
+        "failed": failed,
+        "metrics": metrics,
+        "device": {
+            "platform": "gpu" if device == "cuda" else "cpu",
+            "kind": torch.cuda.get_device_name(0) if device == "cuda"
+            else "cpu",
+            "count": cell.chips,
+            "memory_peak_bytes": mem_peak,
+        },
+    }
+    if trace is not None:
+        result["device"] |= {"busy_s": trace.busy_s,
+                             "window_s": trace.window_s}
+        result["breakdown"] = {
+            "device_ops": sorted(([n, s] for n, s in trace.kernels.items()),
+                                 key=lambda x: -x[1])[:10],
+            "idle_gaps": [[n, s] for n, s in trace.gaps[:10]],
+        }
+    result["checks"] = checks
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
