@@ -33,7 +33,6 @@ import dataclasses
 import os
 import typing
 import pathlib
-import time
 
 import numpy as np
 
@@ -43,6 +42,7 @@ from ..core.devices import require_cuda
 from ..io.fasta import FastaStore
 from ..ops.verify_batch import DeviceVerifier
 from ..stats.readstats import ReadStats
+from ..utils import profiling
 from .seedindex import SeedIndex
 
 UNMAPPABLE_BIN = 200000
@@ -669,6 +669,13 @@ def _align_job_native(*, cdna_index, genome_index, rrna_index,
     }
 
 
+def _index_bytes(index) -> int:
+    """Bytes of a seed index's arrays (mapped, for a saved index)."""
+    return sum(a.nbytes for a in (index.codes, index.offsets, index.keys,
+                                  index.positions, index.prefix_table)
+               if a is not None)
+
+
 def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
                 frag_base=0, device="cuda"):
     """Build indices from config-named references and run the frontend;
@@ -683,27 +690,35 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
     each route land in ``VERIFY_CALLS``.
     ``device="cuda"`` without CUDA raises.  ``frag_base`` offsets fragment
     ids globally when this process owns one shard of a multi-process run.
+
+    The frontend is the library Tracer's span ``frontend``, with spans
+    ``frontend.ingest``, ``frontend.index_load`` (a span an index inside)
+    and ``frontend.align_job`` (one a shard).
     """
+    with profiling.current().span("frontend"):
+        return _align_reads(config, output_dir, fastq1, fastq2, use_device,
+                            frag_base, device)
+
+
+def _align_reads(config, output_dir, fastq1, fastq2, use_device, frag_base,
+                 device):
     dev = require_cuda(device) if use_device else None
-    tv = [time.time()]
-
-    def _tmark(label):
-        if os.environ.get("DEFUSE_ALIGNJOB_TIMING"):
-            now = time.time()
-            print(f"[align_reads] {label}: {now - tv[0]:.2f}s", flush=True)
-            tv[0] = now
-
+    tracer = profiling.current()
     out = pathlib.Path(output_dir)
-    ingested = native.ingest_fastq(fastq1, fastq2, str(out / "reads")) \
-        if native.available() else None
-    _tmark("fastq ingest")
-    if ingested is not None:
-        # native ingest: renamed fastqs + .fqi + names written in C++,
-        # reads handed to the aligner as char matrices
-        reads1, reads2 = ingested
-    else:
-        reads1, reads2, _names = index_paired_fastq(fastq1, fastq2,
-                                                    str(out / "reads"))
+    with tracer.span("frontend.ingest") as counts:
+        ingested = native.ingest_fastq(fastq1, fastq2, str(out / "reads")) \
+            if native.available() else None
+        if ingested is not None:
+            # native ingest: renamed fastqs + .fqi + names written in C++,
+            # reads handed to the aligner as char matrices
+            reads1, reads2 = ingested
+        else:
+            reads1, reads2, _names = index_paired_fastq(fastq1, fastq2,
+                                                        str(out / "reads"))
+        n_frags = len(reads1[1]) if isinstance(reads1, tuple) \
+            else len(reads1)
+        counts.update(pairs=n_frags, bytes=os.path.getsize(fastq1)
+                      + os.path.getsize(fastq2))
     gene_models = GeneModels(config.get_value("gene_models"))
 
     # short-read libraries (< 3*16bp after trim): for references small
@@ -732,38 +747,47 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
                   "sensitivity", flush=True)
 
     def index_of(key, prefix=None):
-        if short_k is not None:
-            return SeedIndex(
-                FastaStore.from_file(config.get_value(key))._seqs,
-                seed_len=short_k)
-        return SeedIndex.load_or_build(config.get_value(key), prefix=prefix)
+        with tracer.span("frontend.index_load." + key.split("_")[0]) as c:
+            if short_k is not None:
+                index = SeedIndex(
+                    FastaStore.from_file(config.get_value(key))._seqs,
+                    seed_len=short_k)
+            else:
+                index = SeedIndex.load_or_build(config.get_value(key),
+                                                prefix=prefix)
+            c["bytes"] = _index_bytes(index)
+        return index
 
-    cdna_index = index_of("cdna_fasta")
-    genome_prefix = None
-    if short_k is None and config.has_value("dataset_prefix"):
-        genome_prefix = config.get_value("dataset_prefix") + ".genome.seedidx"
-        if not SeedIndex.saved_exists(genome_prefix):
-            genome_prefix = None
-    genome_index = index_of("genome_fasta", genome_prefix)
-    rrna_index = index_of("rrna_fasta") if config.has_value("rrna_fasta") \
-        else None
-    # unigene prefilter fastas (config `prefilter1..N`); multiple fastas
-    # merge into one index: the screen only asks whether a proper pair
-    # exists on any single prefilter sequence
-    prefilter_index = None
-    prefilter_paths = [p for p in config.get_indexed("prefilter")
-                       if p and pathlib.Path(p).exists()]
-    if prefilter_paths:
-        merged: dict[str, str] = {}
-        for p in prefilter_paths:
-            merged.update(FastaStore.from_file(p)._seqs)
-        if short_k is not None:
-            prefilter_index = SeedIndex(merged, seed_len=short_k)
-        elif len(prefilter_paths) == 1:
-            prefilter_index = SeedIndex.load_or_build(prefilter_paths[0])
-        else:
-            prefilter_index = SeedIndex(merged)
-    _tmark("seed indices")
+    with tracer.span("frontend.index_load"):
+        cdna_index = index_of("cdna_fasta")
+        genome_prefix = None
+        if short_k is None and config.has_value("dataset_prefix"):
+            genome_prefix = config.get_value("dataset_prefix") + \
+                ".genome.seedidx"
+            if not SeedIndex.saved_exists(genome_prefix):
+                genome_prefix = None
+        genome_index = index_of("genome_fasta", genome_prefix)
+        rrna_index = index_of("rrna_fasta") \
+            if config.has_value("rrna_fasta") else None
+        # unigene prefilter fastas (config `prefilter1..N`); multiple
+        # fastas merge into one index: the screen only asks whether a
+        # proper pair exists on any single prefilter sequence
+        prefilter_index = None
+        prefilter_paths = [p for p in config.get_indexed("prefilter")
+                           if p and pathlib.Path(p).exists()]
+        if prefilter_paths:
+            with tracer.span("frontend.index_load.prefilter") as c:
+                merged: dict[str, str] = {}
+                for p in prefilter_paths:
+                    merged.update(FastaStore.from_file(p)._seqs)
+                if short_k is not None:
+                    prefilter_index = SeedIndex(merged, seed_len=short_k)
+                elif len(prefilter_paths) == 1:
+                    prefilter_index = SeedIndex.load_or_build(
+                        prefilter_paths[0])
+                else:
+                    prefilter_index = SeedIndex(merged)
+                c["bytes"] = _index_bytes(prefilter_index)
     ig_genes = set()
     if config.has_value("ig_gene_list"):
         with open(config.get_value("ig_gene_list")) as fh:
@@ -779,28 +803,29 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
         verify_fn = DeviceVerifier(dev)
 
     def run_shard(r1, r2, outdir, frag_base=0, append=False):
-        return align_job(
-            cdna_index=cdna_index, genome_index=genome_index,
-            rrna_index=rrna_index, gene_models=gene_models,
-            reads1=r1, reads2=r2, outdir=str(outdir),
-            max_insert_size=config.get_int("max_insert_size"),
-            discord_read_trim=config.get_int("discord_read_trim"),
-            max_paired_alignments=config.get_int("max_paired_alignments"),
-            dna_concordant_length=config.get_int("dna_concordant_length"),
-            ig_genes=ig_genes, verify_fn=verify_fn,
-            prefilter_index=prefilter_index, frag_base=frag_base,
-            append=append,
-            # "lazy" (default) skips the pair-SAM text checkpoint on the
-            # native path; consumers regenerate it from the binary table
-            write_sam=config.get_value("pair_sam_checkpoint") != "lazy"
-            if config.has_value("pair_sam_checkpoint") else False)
+        pairs = len(r1[1]) if isinstance(r1, tuple) else len(r1)
+        with tracer.span("frontend.align_job", pairs=pairs):
+            return align_job(
+                cdna_index=cdna_index, genome_index=genome_index,
+                rrna_index=rrna_index, gene_models=gene_models,
+                reads1=r1, reads2=r2, outdir=str(outdir),
+                max_insert_size=config.get_int("max_insert_size"),
+                discord_read_trim=config.get_int("discord_read_trim"),
+                max_paired_alignments=config.get_int("max_paired_alignments"),
+                dna_concordant_length=config.get_int("dna_concordant_length"),
+                ig_genes=ig_genes, verify_fn=verify_fn,
+                prefilter_index=prefilter_index, frag_base=frag_base,
+                append=append,
+                # "lazy" (default) skips the pair-SAM text checkpoint on the
+                # native path; consumers regenerate it from the binary table
+                write_sam=config.get_value("pair_sam_checkpoint") != "lazy"
+                if config.has_value("pair_sam_checkpoint") else False)
 
     def slice_reads(reads, lo, hi):
         if isinstance(reads, tuple):
             return (reads[0][lo:hi], reads[1][lo:hi])
         return reads[lo:hi]
 
-    n_frags = len(reads1[1]) if isinstance(reads1, tuple) else len(reads1)
     reads_per_job = config.get_int("reads_per_job")
     if n_frags > reads_per_job:
         # data-parallel frontend shards bound per-shard memory at
@@ -813,7 +838,6 @@ def align_reads(config, output_dir, fastq1, fastq2, use_device=True,
             res = run_shard(
                 slice_reads(reads1, lo, hi), slice_reads(reads2, lo, hi),
                 out / "aligned", frag_base=frag_base + lo, append=si > 0)
-            _tmark(f"shard {si} ({hi - lo} pairs)")
     else:
         res = run_shard(reads1, reads2, out / "aligned",
                         frag_base=frag_base)

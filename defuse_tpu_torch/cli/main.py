@@ -176,6 +176,14 @@ def _find_or_materialize_pair_sam(out_dir):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command != "run":
+        return _command(args)
+    from ..utils.profiling import library as library_trace
+    with library_trace(args.output):
+        return _command(args)
+
+
+def _command(args) -> int:
     from ..config import Config
 
     if args.command == "run":

@@ -55,7 +55,7 @@ from ..ops.split_dp_batch import pad_batch
 from ..ops.split_dp_cuda import dp_row_maxima_cuda, screen_candidates
 from ..parallel.shard import merge_cluster_parts
 from ..utils import checks
-from ..utils.profiling import Tracer, device_trace
+from ..utils import profiling
 from . import routing
 from .regions import align_regions_file
 
@@ -109,11 +109,12 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
 
     out = pathlib.Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
-    tracer = Tracer(str(out), "metrics.discover.json")
+    tracer = profiling.current().part(str(out), "metrics.discover.json")
 
-    def _mark(stage):
-        return tracer.mark(f"discover:{stage}")
+    def _stage(stage):
+        tracer.stage(f"discover:{stage}" if stage else None)
 
+    _stage("cluster")
     checks.check_spanning_file(spanning)
     params = EMParams(fragment_mean, fragment_stddev, precision,
                       min_cluster_size)
@@ -141,7 +142,7 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
         write_clusters(rows, str(clusters_path))
         _record_em(tracer, em_mode, use_device, dev)
 
-    _mark("cluster")
+    _stage("segregate_mt")
     checks.check_clusters_file(str(clusters_path), min_cluster_size)
     ref_store = None
     if gene_models is not None:
@@ -154,12 +155,12 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
         lines = segregate_mitochondrial(lines, gene_models, mt_chromosome)
         clusters_path.write_text("".join(lines))
 
-    _mark("segregate_mt")
+    _stage("setcover")
     # --- set cover ------------------------------------------------------
     sc_path = out / "clusters.sc"
     run_setcover_file(str(clusters_path), str(sc_path), min_cluster_size)
 
-    _mark("setcover")
+    _stage("post_setcover_filters")
     checks.check_setcover_file(str(clusters_path), str(sc_path))
     if gene_models is not None:
         from ..filters.cluster_filters import apply_post_setcover_filters
@@ -171,12 +172,12 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
             min_cluster_size=min_cluster_size)
         sc_path.write_text("".join(lines))
 
-    _mark("post_setcover_filters")
+    _stage("regions")
     # --- align regions --------------------------------------------------
     regions_path = out / "clusters.sc.regions"
     align_regions_file(sc_path, regions_path)
 
-    _mark("regions")
+    _stage("tasks_build")
     # --- split alignment ------------------------------------------------
     if ref_store is None:
         ref_store = FastaStore.from_file(reference)
@@ -189,7 +190,7 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
     for task in tasks.values():
         realigner.add_task(task)
 
-    _mark("tasks_build")
+    _stage("realign:driver_build" if have_native else "realign:collect")
     split_path = out / "splitreads.alignments"
     sorted_path = out / "splitreads.alignments.sorted"
     outs = {name: out / f"splitreads.{name}" for name in
@@ -206,7 +207,6 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
             improper, reads_handle if reads_handle is not None
             else (fastq1, fastq2), realigner.binned, cluster_ids,
             flank1s, flank2s)
-        _mark("realign:driver_build")
         if os.environ.get("DEFUSE_STAGE_TIMING"):
             mx = max((max(len(a), len(b))
                       for a, b in zip(flank1s, flank2s)), default=0)
@@ -218,7 +218,8 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
             tracer.counters["screen_route"] = route
             if route["choice"] == "device":
                 survivors = _screen(driver, flank1s, flank2s,
-                                    max_read_length, dev, tracer, _mark)
+                                    max_read_length, dev, tracer, _stage)
+        _stage("realign:emit")
         # full realign tail in C++ when possible: emit + sort + breakpoint
         # vote (byte-identical artifacts; falls back to the Python sort/
         # evaluate chain below on failure)
@@ -227,13 +228,13 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
             outs["break"], outs["predalign"], survivors) is not None
         if not native_eval:
             driver.emit(split_path, survivors)
-        _mark("realign:emit")
+        _stage("sort" if native_eval else "realign")
         driver.close()
     else:
         realigner.add_reads_fastq(fastq1)
         realigner.add_reads_fastq(fastq2)
         candidates = collect_candidates(realigner, iter_sam(improper))
-        _mark("realign:collect")
+        _stage("realign")
         dp_dev = dev if dev is not None else torch.device("cpu")
         split_rows = realign_candidates(
             realigner, candidates, _rowmax_fn(dp_dev, tracer),
@@ -242,14 +243,14 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
             for row in split_rows:
                 fh.write(row.format() + "\n")
     if not native_eval:
-        _mark("realign")
+        _stage("sort")
         # --- sort -n equivalent ----------------------------------------
         with open(split_path) as fh:
             lines = fh.readlines()
         lines.sort(key=lambda l: (int(l.split("\t", 1)[0]), l.encode()))
         with open(sorted_path, "w") as fh:
             fh.writelines(lines)
-    _mark("sort")
+    _stage("evaluate")
     checks.check_split_alignments_sorted(str(sorted_path))
     if not native_eval:
         # --- evaluate --------------------------------------------------
@@ -258,7 +259,7 @@ def discover_fusions(spanning, improper, fastq1, fastq2, reference, exons,
                 open(outs["predalign"], "w") as pred_out:
             evaluate_file(tasks, str(sorted_path), seq_out, break_out,
                           pred_out)
-    _mark("evaluate")
+    _stage(None)
     tracer.flush()
     return {name: str(path) for name, path in outs.items()} | {
         "clusters": str(clusters_path), "clusters_sc": str(sc_path),
@@ -386,23 +387,22 @@ def _screen_route(n_candidates, max_read_length):
     return {**est, "choice": choice, "mode": mode}
 
 
-def _screen(driver, flank1s, flank2s, max_read_length, dev, tracer, _mark):
+def _screen(driver, flank1s, flank2s, max_read_length, dev, tracer, _stage):
     """The split-read DP screen on ``dev``: a bool mask of the candidate
     reads that some split alignment accepts."""
+    _stage("screen:read_matrix")
     L = _pad_len(max_read_length, 64)
     reads_p, read_lens, fidx = driver.read_matrix(L)
-    _mark("screen:read_matrix")
+    _stage("screen:pad")
     R = _pad_len(max(max(len(a), len(b)) for a, b in zip(flank1s, flank2s)))
     u1p, u1l = pad_batch(flank1s, R)
     u2rp, u2l = pad_batch([s[::-1] for s in flank2s], R)
     min_scores = screen_min_scores(read_lens)
-    _mark("screen:pad")
+    _stage("screen:upload")
     operands = screen_operands(u1p, u1l, u2rp, u2l, np.maximum(fidx, 0),
                                reads_p, read_lens, min_scores, dev)
-    _mark("screen:upload")
-    with device_trace("split_dp_screen"):
-        max_scores = screen_candidates(*operands).cpu().numpy()
-    tracer.count("screen_device_seconds", _mark("screen:device"))
+    _stage("screen:device")
+    max_scores = screen_candidates(*operands).cpu().numpy()
     survivors = max_scores > 0
     tracer.count("screen_candidates", int(len(survivors)))
     tracer.count("screen_survivors", int(survivors.sum()))

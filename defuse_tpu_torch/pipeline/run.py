@@ -39,6 +39,7 @@ from ..stats.pvalues import spanning_pvalue, \
     split_pvalues
 from ..stats.readstats import ReadStats, read_stats_from_sam
 from ..core.devices import require_cuda
+from ..utils import profiling
 from .discover import discover_fusions
 from .runner import Runner
 
@@ -97,6 +98,7 @@ def run_pipeline(**kwargs):
                            kwargs.get("library_name", ""), status)
 
 
+@profiling.runs_library
 def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
                  spanning: str, improper: str, fastq1: str, fastq2: str,
                  concordant_sam: str | None = None,
@@ -208,10 +210,11 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
         with open(tmp_outputs[0], "w") as fh:
             fh.write(stats.format())
 
-    runner.run("read stats", stage_read_stats,
-               inputs=([concordant_sam] if concordant_sam else [])
-               + _pt_inputs,
-               outputs=[stats_path])
+    with profiling.current().span("read stats"):
+        runner.run("read stats", stage_read_stats,
+                   inputs=([concordant_sam] if concordant_sam else [])
+                   + _pt_inputs,
+                   outputs=[stats_path])
     stats = _read_stats_file(stats_path)
 
     frag_mean = stats.fraglength_mean
@@ -484,8 +487,9 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
             _merge_files(sample_dsts)
 
         try:
-            runner.run("covariance samples", stage_calccov,
-                       inputs=cov_inputs, outputs=cov_outputs)
+            with profiling.current().span("covariance samples"):
+                runner.run("covariance samples", stage_calccov,
+                           inputs=cov_inputs, outputs=cov_outputs)
         finally:
             if cov_part_mode and not dist.cov_parts_done:
                 # the stage raced to up-to-date (or failed before its
@@ -501,10 +505,10 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
     if _native.available():
         _native.pairtbl_cache_clear()
 
-    from ..utils.profiling import Tracer
-    _tracer = Tracer(str(out))
-    _mark = _tracer.mark
+    _tracer = profiling.current()
+    _stage = _tracer.stage
 
+    _stage("discover")
     # --- cluster + split chain -----------------------------------------
     gm = GeneModels(gene_models_gtf) if gene_models_gtf else None
     discover_outs = discover_fusions(
@@ -521,7 +525,7 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
         dna_concordant_length=config.get_int("dna_concordant_length"),
         dist=dist, reads_sources=reads_sources, device=device)
 
-    _mark("discover")
+    _stage("pvalues")
     # --- p-values -------------------------------------------------------
     # preferred source: the calccov stage's fused merge artifact
     # (hexfloat-exact, bit-identical to re-merging the sample files);
@@ -618,7 +622,7 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
                              covariances["span"], span_readlen)
         span_p[cid] = f"{sp:.15g}"
 
-    _mark("pvalues")
+    _stage("breakseq")
     # --- breakpoint sequence alignment (gmap/blat stage) ----------------
     psl_paths: dict[str, str] = {}
     if genome_fasta:
@@ -631,32 +635,38 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
             if f[1] not in ("N", ""):
                 breakseqs[int(f[0])] = f[1]
         targets = dict(target_indices or {})
-        if "genome" not in targets:
-            # mmap-load the persisted index (bowtie-build semantics)
-            # instead of rebuilding the multi-GB genome index per run —
-            # the build dominated the whole breakseq stage (~10s at 10M
-            # pairs); content is identical (load_or_build stamps and
-            # validates the fasta source).  create-ref persists one
-            # under dataset_prefix; otherwise it lands beside the fasta.
-            genome_prefix = None
-            if config.has_value("dataset_prefix"):
-                genome_prefix = config.get_value("dataset_prefix") \
-                    + ".genome.seedidx"
-                if not SeedIndex.saved_exists(genome_prefix):
-                    genome_prefix = None
-            targets["genome"] = SeedIndex.load_or_build(
-                genome_fasta, prefix=genome_prefix)
-        for tname, key in (("cdna", "cdna_fasta"),
-                           ("exons", "exons_fasta"),
-                           ("cds", "cds_fasta"), ("est", "est_fasta")):
-            if tname not in targets and config.has_value(key):
-                path = config.get_value(key)
-                import os as _os
-                if _os.path.exists(path):
-                    targets[tname] = SeedIndex.load_or_build(path)
-        psl_paths = align_breakpoints(breakseqs, targets, str(out))
+        with _tracer.span("breakseq.index_load"):
+            if "genome" not in targets:
+                # mmap-load the persisted index (bowtie-build semantics)
+                # instead of rebuilding the multi-GB genome index per run —
+                # the build dominated the whole breakseq stage (~10s at 10M
+                # pairs); content is identical (load_or_build stamps and
+                # validates the fasta source).  create-ref persists one
+                # under dataset_prefix; otherwise it lands beside the fasta.
+                genome_prefix = None
+                if config.has_value("dataset_prefix"):
+                    genome_prefix = config.get_value("dataset_prefix") \
+                        + ".genome.seedidx"
+                    if not SeedIndex.saved_exists(genome_prefix):
+                        genome_prefix = None
+                targets["genome"] = SeedIndex.load_or_build(
+                    genome_fasta, prefix=genome_prefix)
+            for tname, key in (("cdna", "cdna_fasta"),
+                               ("exons", "exons_fasta"),
+                               ("cds", "cds_fasta"), ("est", "est_fasta")):
+                if tname not in targets and config.has_value(key):
+                    path = config.get_value(key)
+                    import os as _os
+                    if _os.path.exists(path):
+                        targets[tname] = SeedIndex.load_or_build(path)
+        # a target at a time, each its own span: the same files as
+        # one call over all of them
+        for tname, index in targets.items():
+            with _tracer.span(f"breakseq.align.{tname}"):
+                psl_paths.update(align_breakpoints(
+                    breakseqs, {tname: index}, str(out)))
 
-    _mark("breakseq")
+    _stage("annotation")
     # --- annotation -----------------------------------------------------
     annotations: dict[int, dict] = {}
     # the classifier needs the full feature set; denovo-only annotation
@@ -736,7 +746,7 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
             cid_s, key, value = r.split("\t", 2)
             annotations.setdefault(int(cid_s), {})[key] = value
 
-    _mark("annotation")
+    _stage("denovo")
     # --- optional de novo assembly (separate outputs; results.tsv keeps
     # reference-schema parity) ------------------------------------------
     denovo_outs = {}
@@ -805,7 +815,7 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
                 for key in sorted(dn_rows[cid]):
                     fh.write(f"{cid}\t{key}\t{dn_rows[cid][key]}\n")
                 annotations.setdefault(cid, {}).update(dn_rows[cid])
-    _mark("denovo")
+    _stage("collate+classify")
 
     # --- collate + classify + filter -----------------------------------
     results = out / "results.tsv"
@@ -827,8 +837,7 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
         for p in (classified, filtered):
             if p.exists():
                 p.unlink()
-    _mark("collate+classify")
-    _tracer.flush()
+    _stage(None)
     return {"results": str(results),
             "classified": str(classified) if classified.exists()
             else None,

@@ -1,63 +1,254 @@
-"""Stage metrics, kernel timing and opt-in device profiling for the port.
+"""Spans, stage metrics, kernel timing and device profiling for the port.
 
-``Tracer`` records stage wall times and counters into the run's metrics
-artifact (the port's copy of ``defuse_tpu/utils/profiling.Tracer``);
-``device_trace`` is the counterpart of that module's ``device_trace`` on
-``torch.profiler``; ``cuda_time_ms`` times a kernel by CUDA events.
+``Tracer`` records a library's spans, and the stage wall times and
+counters of a metrics artifact; ``library`` opens the Tracer of one ``run``
+(with ``torch.profiler`` over it under ``DEFUSE_TORCH_PROFILE``), which
+every layer below reaches through ``current``; ``RUN_SPANS`` keeps each
+finished run's span seconds for readers in the same process;
+``cuda_time_ms`` times a kernel by CUDA events.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import json
 import os
 import pathlib
 import time
+import uuid
 
 import torch
 
+SPAN_PREFIX = "defuse:"
+# one dict a finished run (``library``): span name -> seconds summed
+RUN_SPANS: collections.deque = collections.deque(maxlen=1024)
+_LIBRARIES: list[Tracer] = []   # the open libraries' Tracers, innermost last
+
+
+def _profiler_on() -> bool:
+    return torch._C._autograd._profiler_enabled()
+
 
 class Tracer:
-    """Stage wall-clock + counter collector with a JSON artifact."""
+    """A library's spans, and one artifact's stage wall clock and counters.
+
+    A span (``span``, ``stage``) is a stretch of the run on
+    ``time.perf_counter_ns`` (CLOCK_MONOTONIC, the clock of the native
+    library's ``steady_clock``) with its name, the span open around it (its
+    parent), the run's identifier and counts taken at its edges.  While
+    ``torch.profiler`` records, each span opened here is also a range
+    ``defuse:<name>`` of the profiler's host events, on its clock (a
+    function-scope record, which the profiler does not mirror onto the
+    device's timeline as it does ``record_function``'s, so a device trace's
+    busy time stays the kernels' and copies'); otherwise a span costs two
+    clock reads and an append.  Stages follow
+    one another, each a span open until the next, and each closed stage
+    also lands in ``stages``.  ``part`` gives a layer a stage log, counters
+    and an artifact of its own on the same spans.  Spans are opened and
+    closed by the thread that runs the library."""
 
     def __init__(self, outdir: str | None = None,
-                 artifact: str = "metrics.json"):
-        self._t0 = time.time()
-        self._last = self._t0
+                 artifact: str = "metrics.json", *,
+                 within: Tracer | None = None):
+        self._root = self if within is None else within._root
+        if within is None:
+            self.run_id = uuid.uuid4().hex
+            # [id, name, parent id, start ns, end ns, counts]
+            self.spans: list[list] = []
+            # the open spans, innermost last, each with its profiler range
+            # last until it closes
+            self._open: list[list] = []
+            self._ids = itertools.count()
+            self._echo = bool(os.environ.get("DEFUSE_STAGE_TIMING"))
+        self._t0 = self._t1 = time.perf_counter_ns()
+        self._stage = None                # the open stage's span id
         self.stages: list[dict] = []
         self.counters: dict[str, float] = {}
         self._path = (pathlib.Path(outdir) / artifact) if outdir else None
-        self._echo = bool(os.environ.get("DEFUSE_STAGE_TIMING"))
 
-    def mark(self, stage: str, **extra) -> float:
-        """Close the current stage interval under ``stage``."""
-        now = time.time()
-        dt = now - self._last
-        self._last = now
-        rec = {"stage": stage, "seconds": round(dt, 4)}
-        if extra:
-            rec.update(extra)
-        self.stages.append(rec)
-        if self._echo:
-            print(f"[stage] {stage}: {dt:.2f}s", flush=True)
-        return dt
+    def part(self, outdir: str, artifact: str) -> Tracer:
+        """A Tracer of its own stages, counters and artifact whose spans
+        are this one's."""
+        return Tracer(outdir, artifact, within=self)
+
+    @contextlib.contextmanager
+    def span(self, name: str, **counts):
+        """A span around the block; ``counts`` is yielded, so the block can
+        add the counts it learns."""
+        root = self._root
+        sid = root._enter(name, counts)
+        try:
+            yield counts
+        finally:
+            root._exit(sid)
+
+    def stage(self, name: str | None) -> None:
+        """Close this Tracer's open stage, recording it under ``stages``,
+        and open stage ``name`` (none when None)."""
+        root = self._root
+        if self._stage is not None:
+            _sid, done, _p, start, end, *_ = root._exit(self._stage)
+            self.stages.append({"stage": done,
+                                "seconds": round((end - start) / 1e9, 4)})
+            self._t1 = end
+            self._stage = None
+        if name is not None:
+            self._stage = root._enter(name, {})
+            if not self.stages:
+                self._t0 = root._open[-1][3]
 
     def count(self, name: str, value: float) -> None:
         self.counters[name] = self.counters.get(name, 0) + value
+
+    def _enter(self, name: str, counts: dict) -> int:
+        rf = None
+        if _profiler_on():
+            rf = torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+            rf.__enter__()
+        sid = next(self._ids)
+        self._open.append([sid, name, self._open[-1][0] if self._open
+                           else None, time.perf_counter_ns(), None, counts,
+                           rf])
+        return sid
+
+    def _exit(self, sid: int) -> list:
+        """Close span ``sid`` and any left open inside it."""
+        end = time.perf_counter_ns()
+        while self._open:
+            rec = self._open.pop()
+            rec[4] = end
+            rf = rec.pop()
+            if rf is not None:
+                rf.__exit__(None, None, None)
+            self.spans.append(rec)
+            if self._echo:
+                print(f"[stage] {rec[1]}: {(end - rec[3]) / 1e9:.2f}s",
+                      flush=True)
+            if rec[0] == sid:
+                return rec
+        raise RuntimeError(f"span {sid} is not open")
+
+    def span_records(self) -> list[dict]:
+        """The closed spans in the order they started, each with its
+        seconds and its self seconds (its time less the part of it its
+        children cover)."""
+        kids: dict[int, list] = collections.defaultdict(list)
+        for rec in self.spans:
+            if rec[2] is not None:
+                kids[rec[2]].append((rec[3], rec[4]))
+        out = []
+        for sid, name, parent, start, end, counts in sorted(
+                self.spans, key=lambda r: (r[3], r[0])):
+            covered, reach = 0, start
+            for a, b in sorted(kids[sid]):
+                a, b = max(a, reach), min(b, end)
+                if b > a:
+                    covered += b - a
+                    reach = b
+            out.append({"name": name, "id": sid, "parent": parent,
+                        "run": self.run_id, "start_ns": start,
+                        "end_ns": end, "seconds": round((end - start) / 1e9,
+                                                        6),
+                        "self_seconds": round((end - start - covered) / 1e9,
+                                              6),
+                        "counts": counts})
+        return out
+
+    def span_seconds(self) -> dict[str, float]:
+        """Seconds of each span name, summed over the run."""
+        out: dict[str, float] = {}
+        for rec in self.spans:
+            out[rec[1]] = out.get(rec[1], 0.0) + (rec[4] - rec[3]) / 1e9
+        return out
 
     def flush(self) -> str | None:
         if self._path is None:
             return None
         self._path.parent.mkdir(parents=True, exist_ok=True)
+        t1 = time.perf_counter_ns() if self._stage is not None or \
+            not self.stages else self._t1
         payload = {
-            "total_seconds": round(time.time() - self._t0, 4),
+            "total_seconds": round((t1 - self._t0) / 1e9, 4),
             "stages": self.stages,
             "counters": self.counters,
         }
+        if self._root is self:
+            payload["spans"] = self.span_records()
         tmp = self._path.with_name(self._path.name + ".tmp")
         tmp.write_text(json.dumps(payload, indent=1))
         tmp.replace(self._path)
         return str(self._path)
+
+
+def current() -> Tracer:
+    """The Tracer of the library being run (``library``); where none is
+    open, a new one that writes nothing."""
+    return _LIBRARIES[-1] if _LIBRARIES else Tracer()
+
+
+@contextlib.contextmanager
+def library(outdir: str):
+    """The Tracer of one library's run into ``outdir``, ``current`` while
+    open; opened again for the same ``outdir``, the one already open.  On
+    a clean exit its ``metrics.json`` is written and its span seconds are
+    added to ``RUN_SPANS``.  Under ``DEFUSE_TORCH_PROFILE=<dir>``,
+    ``torch.profiler`` records the whole run: a Chrome trace, with a
+    ``defuse:`` range for every span, and a kernel table land in
+    ``<dir>/<run id>/``."""
+    path = pathlib.Path(outdir) / "metrics.json"
+    if _LIBRARIES and _LIBRARIES[-1]._path == path:
+        yield _LIBRARIES[-1]
+        return
+    tracer = Tracer(outdir)
+    trace_dir = os.environ.get("DEFUSE_TORCH_PROFILE")
+    profiled = _profiled(pathlib.Path(trace_dir) / tracer.run_id) \
+        if trace_dir else contextlib.nullcontext()
+    _LIBRARIES.append(tracer)
+    try:
+        with profiled:
+            try:
+                yield tracer
+            finally:
+                if tracer._open:        # a failed run's
+                    tracer._exit(tracer._open[0][0])
+    finally:
+        _LIBRARIES.remove(tracer)
+    tracer.flush()
+    RUN_SPANS.append(tracer.span_seconds())
+
+
+def runs_library(fn):
+    """``fn``, called with keywords, as the library of its ``output_dir``
+    (``library``)."""
+    @functools.wraps(fn)
+    def run(**kwargs):
+        with library(kwargs["output_dir"]):
+            return fn(**kwargs)
+    return run
+
+
+@contextlib.contextmanager
+def _profiled(path: pathlib.Path):
+    """``torch.profiler`` (CPU and CUDA activity) over the block, unless
+    one records already, whose trace then holds the spans."""
+    if _profiler_on():
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + \
+        ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        yield
+    path.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path / "trace.json"))
+    (path / "kernels.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total" if cuda else "self_cpu_time_total",
+        row_limit=30))
 
 
 def cuda_time_ms(fn, reps: int, graph: bool = False, rounds: int = 1) -> float:
@@ -91,28 +282,3 @@ def cuda_time_ms(fn, reps: int, graph: bool = False, rounds: int = 1) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
-
-
-@contextlib.contextmanager
-def device_trace(label: str):
-    """Wrap a device-heavy stage in ``torch.profiler`` when
-    ``DEFUSE_TORCH_PROFILE=<dir>`` is set: a Chrome trace and a per-kernel
-    table land in ``<dir>/<label>/``.  No-op otherwise."""
-    trace_dir = os.environ.get("DEFUSE_TORCH_PROFILE")
-    if not trace_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    path = pathlib.Path(trace_dir) / label
-    path.mkdir(parents=True, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(str(path / "trace.json"))
-    (path / "kernels.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total"
-                                  if torch.cuda.is_available()
-                                  else "self_cpu_time_total", row_limit=30))

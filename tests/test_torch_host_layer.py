@@ -44,7 +44,10 @@ DIVERGED = {
         "align_reads wires the port's DeviceVerifier (require_cuda, no "
         "device probe; the verifier's cost model routes each call) where "
         "the reference imports its JAX verifier, and records the calls of "
-        "each route in VERIFY_CALLS; the rest is the reference's text",
+        "each route in VERIFY_CALLS; the frontend, its ingest, index loads "
+        "and align_job shards are spans of the library's Tracer, in place "
+        "of the reference's DEFUSE_ALIGNJOB_TIMING prints; the rest is the "
+        "reference's text",
         ("SingleAlignment", "index_paired_fastq", "_align_all",
          "_align_all_native", "align_job")),
     "align/batch_realign.py": (
@@ -66,7 +69,11 @@ DIVERGED = {
          "emit_cluster_rows", "strand_remap_vec", "write_clusters")),
     "pipeline/run.py": (
         "_run_pipeline takes device and checks the card up front where the "
-        "reference starts its probe; it binds the port's discover_fusions",
+        "reference starts its probe; it binds the port's discover_fusions; "
+        "it is a library of utils.profiling, whose Tracer's stages are its "
+        "stages (spans, each open until the next), the Runner's stages "
+        "are spans around its calls, and breakseq loads its indices in one "
+        "span and aligns a target at a time, each in a span of its own",
         ("run_pipeline", "_notify_completion", "_read_stats_file",
          "_span_stats", "_span_stats_from_breaks",
          "materialize_cov_samples")),
@@ -93,7 +100,9 @@ DIVERGED = {
         ("create_reference",)),
     "cli/main.py": (
         "run and cohort take --device {cuda,cpu} and check the card at "
-        "once; the other six verbs are the reference's text",
+        "once; run is a library of utils.profiling (its Tracer and, under "
+        "DEFUSE_TORCH_PROFILE, torch.profiler over the whole command); the "
+        "other six verbs are the reference's text",
         ("_find_or_materialize_pair_sam",)),
     "cluster/matepair_em_batch.py": (
         "on a CUDA device em_run is the hand-written kernel csrc/em.cu "
@@ -135,9 +144,13 @@ DIVERGED = {
         "DEFUSE_LINK_BW/DEFUSE_LINK_RTT override, and probes nothing",
         ()),
     "utils/profiling.py": (
-        "device_trace runs torch.profiler instead of jax.profiler, and "
-        "cuda_time_ms is the port's; Tracer is the reference's text",
-        ("Tracer",)),
+        "the port's own span system: Tracer records a library's spans on "
+        "perf_counter_ns (host ranges while torch.profiler records) "
+        "with stages that are spans, library opens a run's "
+        "Tracer and profiles the whole run under DEFUSE_TORCH_PROFILE, "
+        "RUN_SPANS keeps each run's span seconds; cuda_time_ms is the "
+        "port's",
+        ()),
 }
 
 
@@ -195,9 +208,17 @@ def test_tie_column_enumeration_names_its_roadmap_item():
             batch_realign._device_tie_columns(*args)
 
 
+# the lines that make ``run`` a library of ``utils.profiling``
+LIBRARY_TRACE = {'if args.command != "run":', "return _command(args)",
+                 "from ..utils.profiling import library as library_trace",
+                 "with library_trace(args.output):",
+                 "def _command(args) -> int:"}
+
+
 def test_cli_main_differs_only_in_the_device_flag():
     """``cli/main.py`` against the reference's text: every changed line
-    belongs to the ``--device`` flag, its check or its hand-down."""
+    belongs to the ``--device`` flag, its check or its hand-down, or is
+    one of the lines that open ``run``'s library trace."""
     ref = renamed((REFERENCE / "cli/main.py").read_text()).splitlines()
     port = (PORT / "cli/main.py").read_text().splitlines()
     changed = [line[1:] for line in difflib.unified_diff(
@@ -206,6 +227,7 @@ def test_cli_main_differs_only_in_the_device_flag():
     words = ("device", "cuda", "cpu", "card", "kernels", "plain PyTorch",
              "host")
     stray = [line for line in changed if line.strip()
+             and line.strip() not in LIBRARY_TRACE
              and not any(w in line for w in words)]
     assert not stray, stray
     assert 0 < len(changed) < 40
