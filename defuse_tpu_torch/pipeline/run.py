@@ -659,12 +659,12 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
                     import os as _os
                     if _os.path.exists(path):
                         targets[tname] = SeedIndex.load_or_build(path)
-        # a target at a time, each its own span: the same files as
-        # one call over all of them
+        # a target at a time, each its own span with the counts of its
+        # pass: the same files as one call over all of them
         for tname, index in targets.items():
-            with _tracer.span(f"breakseq.align.{tname}"):
+            with _tracer.span(f"breakseq.align.{tname}") as counts:
                 psl_paths.update(align_breakpoints(
-                    breakseqs, {tname: index}, str(out)))
+                    breakseqs, {tname: index}, str(out), counts=counts))
 
     _stage("annotation")
     # --- annotation -----------------------------------------------------

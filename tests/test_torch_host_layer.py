@@ -73,7 +73,8 @@ DIVERGED = {
         "it is a library of utils.profiling, whose Tracer's stages are its "
         "stages (spans, each open until the next), the Runner's stages "
         "are spans around its calls, and breakseq loads its indices in one "
-        "span and aligns a target at a time, each in a span of its own",
+        "span and aligns a target at a time, each in a span of its own "
+        "with the counts of its pass",
         ("run_pipeline", "_notify_completion", "_read_stats_file",
          "_span_stats", "_span_stats_from_breaks",
          "materialize_cov_samples")),
@@ -143,6 +144,16 @@ DIVERGED = {
         "card's link as constants measured on it, with the reference's "
         "DEFUSE_LINK_BW/DEFUSE_LINK_RTT override, and probes nothing",
         ()),
+    "align/breakseq.py": (
+        "one batched seed-and-extend pass per target: every query on both "
+        "strands seeded, searched (inside the prefix table's buckets where "
+        "the index has one), grouped into blocks and x-drop extended as "
+        "arrays, then chained a (query, strand, target sequence) at a "
+        "time; the genome's blocks are made once and chained for both "
+        "genome and genome.nointron; align_breakpoints adds the counts of "
+        "each pass to its counts argument; align_breakseq is the one-query "
+        "case of the same code; the files are the reference's bytes",
+        ("PslRow", "SEED_STEP", "XDROP")),
     "utils/profiling.py": (
         "the port's own span system: Tracer records a library's spans on "
         "perf_counter_ns (host ranges while torch.profiler records) "

@@ -6,7 +6,7 @@ top-level spans over the command's wall, the frontend's parts over the
 frontend, and ``stages`` as before.  Under ``DEFUSE_TORCH_PROFILE`` every span is a
 ``defuse:`` host range of the run's trace; with no profiler recording no
 profiler record is entered.  Breakseq's per-target calls write the files
-of one call over every target."""
+of one call over every target, each span with the counts of its pass."""
 
 import json
 import pathlib
@@ -260,6 +260,32 @@ def test_library_is_opened_once_for_one_output(tmp_path):
         assert profiling.current() is outer
     assert (tmp_path / "metrics.json").exists()
     assert (tmp_path / "other" / "metrics.json").exists()
+
+
+def test_breakseq_target_spans_count_their_pass(traced, library):
+    """Each ``breakseq.align.<target>`` span carries what its batched pass
+    carried: the queries (the non-``N`` rows of ``splitreads.seq``), the
+    seeds searched, their hits, the blocks and the PSL rows written."""
+    metrics, _t0, _t1 = traced
+    tmp, _args = library
+    queries = sum(1 for line in open(tmp / "run" / "splitreads.seq")
+                  if line.split("\t")[1] not in ("N", ""))
+    assert queries > 0
+    spans = [s for s in metrics["spans"]
+             if s["name"].startswith("breakseq.align.")]
+    assert len(spans) == 4
+    for s in spans:
+        counts = s["counts"]
+        assert sorted(counts) == ["blocks", "hits", "queries", "rows",
+                                  "seeds"], s["name"]
+        assert counts["queries"] == queries
+        assert counts["seeds"] >= queries
+        assert counts["hits"] >= counts["blocks"] > 0
+        labels = ["genome", "genome.nointron"] \
+            if s["name"] == "breakseq.align.genome" else [s["name"][15:]]
+        assert counts["rows"] == sum(
+            len((tmp / "run" / f"breakpoints.{label}.psl").read_text()
+                .splitlines()) for label in labels)
 
 
 def test_breakseq_per_target_writes_the_files_of_one_call(tmp_path):
