@@ -1,9 +1,13 @@
 """``run_stages_s``: mean seconds a library spends in ``pipeline.run``'s
 host stages other than discover (read stats and covariance samples by the
-benchmark's span; p-values, breakseq, annotation, de novo, collate and
-classify from each run's ``metrics.json``)."""
+benchmark's span in a ``run`` cell, by the program's spans around the same
+calls in a ``cohort`` cell; p-values, breakseq, annotation, de novo,
+collate and classify from each run's ``metrics.json``); nothing where a
+library has no such reading."""
 
 
 def read(ctx):
-    libs = ctx.libraries
-    return sum(r["run_stages_s"] for r in libs) / len(libs) if libs else None
+    values = [r["run_stages_s"] for r in ctx.libraries]
+    if not values or None in values:
+        return None
+    return sum(values) / len(values)

@@ -14,6 +14,10 @@ from generator import Genes
 from reference import (CONCORDANT, IMPROPER, SPANNING, genome_to_transcript,
                        transcript_to_genome)
 
+# what ``read_run`` reads of a run's output directory
+FILES = ("aligned/improper.sam", "aligned/spanning.compact",
+         "concordant.read.stats", "splitreads.break", "results.tsv")
+
 
 @dataclasses.dataclass
 class Observed:
@@ -21,6 +25,11 @@ class Observed:
     n_concordant: int
     breaks: list[tuple]            # discover: ((ref, pos), (ref, pos)) a cluster
     results: list[dict]            # results.tsv rows
+
+
+def out_bytes(path: pathlib.Path) -> int:
+    """Bytes of every file under a run's output directory."""
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
 def gene_id(name: str) -> int:

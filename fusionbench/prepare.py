@@ -1,10 +1,12 @@
 """A cell of ``BENCHMARK.json``, and set-up's data work in a process of its
 own: the configuration's reference dataset (built once into
 ``build/fusionbench/ref/``, keyed by the configuration file and
-``generator.py``), the pool's two libraries and the warm-up library as
-paired FASTQ, and each pooled library's truth for the check.  ``run.py``
-starts it beside its own imports, so that the memory the generator takes
-never counts in the run's resident high-water mark.
+``generator.py``), the pool's libraries (two; a cohort configuration's
+``cohort.libraries``) and the warm-up library as paired FASTQ, with a
+manifest of each for ``defuse cohort``, and each pooled library's truth
+for the check.  ``run.py`` starts it beside its own imports, so that the
+memory the generator takes never counts in the run's resident high-water
+mark.
 
     python3 fusionbench/prepare.py --workload wts50.dense --seed 7 \
         --work <dir>
@@ -44,8 +46,20 @@ def find(root: pathlib.Path, kind: str, file: str) -> pathlib.Path:
     return path if path.exists() else HERE / kind / file
 
 
+VERBS = ("run", "cohort")
+SCREENS = ("device", "auto")
+
+
 class Cell:
-    """A workload of ``BENCHMARK.json`` with its configuration and mix."""
+    """A workload of ``BENCHMARK.json`` with its configuration and mix.
+
+    The configuration's ``verb`` (``run`` where it has none) is how the
+    window drives the program: ``run``, a library at a time in the
+    harness's process, or ``cohort``, ``cohort.libraries`` libraries a call
+    of ``defuse cohort`` with ``cohort.workers`` library processes at once.
+    The mix's ``screen`` (``device`` where it has none) is the route its
+    libraries' split-read screen must take: the card's, or the one the
+    program records as its own choice (``auto``)."""
 
     def __init__(self, name: str, root: pathlib.Path = ROOT):
         bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -67,12 +81,29 @@ class Cell:
                            if name in m.get("workloads", [name])}
         self.units = {m["name"]: m["unit"] for m in
                       bench["end_to_end"] + bench["per_layer"]}
+        self.verb = self.cfg.get("verb", "run")
+        cohort = self.cfg.get("cohort", {})
+        self.n_libraries = int(cohort.get("libraries", 2))
+        self.workers = int(cohort.get("workers", 1))
+        self.screen = self.mix.get("screen", "device")
+        if self.verb not in VERBS or self.screen not in SCREENS or \
+                self.n_libraries < 1 or self.workers < 1:
+            raise SystemExit(
+                f"{name}: verb {self.verb!r} (one of {VERBS}), screen "
+                f"{self.screen!r} (one of {SCREENS}), cohort {cohort!r}")
 
 
-def library_seeds(seed: int) -> list[int]:
-    """Seeds of the pool's two libraries and of the warm-up library."""
+def library_seeds(seed: int, n_pool: int = 2) -> list[int]:
+    """Seeds of the pool's ``n_pool`` libraries, then of the warm-up
+    library: the children of ``SeedSequence(seed).spawn`` keep their index,
+    so the first two pooled libraries are children 0 and 1 and the warm-up
+    child 2 at every ``n_pool``, and further pooled libraries children 3
+    on."""
     ss = np.random.SeedSequence(seed)
-    return [int(s.generate_state(1, np.uint64)[0]) for s in ss.spawn(3)]
+    kids = [int(s.generate_state(1, np.uint64)[0])
+            for s in ss.spawn(max(3, n_pool + 1))]
+    pool = (kids[:2] + kids[3:])[:n_pool]
+    return pool + [kids[2]]
 
 
 def reference_dataset(cell: Cell, cache: pathlib.Path = CACHE):
@@ -126,9 +157,9 @@ def prepare(cell: Cell, seed: int, work: pathlib.Path,
     print(f"[setup] reference dataset {dataset} "
           f"({'built in %.1f s' % built if built else 'cached'})")
     genes = generator.Genes.load(inputs / "genes.npz")
-    s_pool, s_other, s_warm = library_seeds(seed)
+    *pool, s_warm = library_seeds(seed, cell.n_libraries)
     libs, written = [], 0
-    for k, s in enumerate((s_pool, s_other)):
+    for k, s in enumerate(pool):
         lib = generator.make_library(cell.cfg, cell.mix, genes, s)
         fq1, fq2, n = generator.write_library(lib, genes, s, work / f"lib{k}")
         save_truth(lib, work / f"lib{k}" / "truth.npz")
@@ -140,10 +171,24 @@ def prepare(cell: Cell, seed: int, work: pathlib.Path,
     wfq1, wfq2, n = generator.write_library(warm, genes, s_warm,
                                             work / "warm")
     written += n
-    return {"config": str(config), "dataset": str(dataset),
-            "genes": str(inputs / "genes.npz"), "built_s": built,
-            "fastq_bytes": written, "libs": libs,
-            "warm": [str(wfq1), str(wfq2)], "warm_pairs": WARMUP_PAIRS}
+    out = {"config": str(config), "dataset": str(dataset),
+           "genes": str(inputs / "genes.npz"), "built_s": built,
+           "fastq_bytes": written, "libs": libs,
+           "warm": [str(wfq1), str(wfq2)], "warm_pairs": WARMUP_PAIRS}
+    if cell.verb == "cohort":
+        out["manifest"] = str(write_manifest(
+            work / "pool.tsv", [(f"lib{k}", *lb["fq"])
+                                for k, lb in enumerate(libs)]))
+        out["warm_manifest"] = str(write_manifest(
+            work / "warm.tsv", [("warm", str(wfq1), str(wfq2))]))
+    return out
+
+
+def write_manifest(path: pathlib.Path, rows) -> pathlib.Path:
+    """A ``defuse cohort`` manifest: ``name<TAB>fastq1<TAB>fastq2`` a
+    library."""
+    path.write_text("".join("\t".join(map(str, r)) + "\n" for r in rows))
+    return path
 
 
 def main(argv=None) -> int:

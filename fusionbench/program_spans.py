@@ -1,9 +1,12 @@
 """The program's own spans, as the per-layer readers of ``metrics/`` read
-them: each finished ``defuse run`` leaves a dict of span name to seconds
-in ``defuse_tpu_torch.utils.profiling.RUN_SPANS``, read in this process
-(``metrics.json`` is not read: ``run_stages_s`` sums its ``stages``).  The
-window's libraries are the last ``len(ctx.libraries)`` entries: runs
-that failed leave none, and no run follows the window."""
+them.  A library run in another process (a ``cohort`` cell) carries its
+span seconds in its record (``spans``, from its ``metrics.json``, which the
+same ``Tracer`` writes; None where it records none).  A ``run`` in this
+process leaves a dict of span name to seconds in
+``defuse_tpu_torch.utils.profiling.RUN_SPANS``, read here (``metrics.json``
+is not read: ``run_stages_s`` sums its ``stages``); the window's libraries
+are the last ``len(ctx.libraries)`` entries: runs that failed leave none,
+and no run follows the window."""
 
 
 def mean_seconds(ctx, *names):
@@ -11,12 +14,17 @@ def mean_seconds(ctx, *names):
     ``names``, summed; None where the program keeps no such record (a
     program without spans), fewer records than libraries, or none of the
     spans."""
-    try:
-        from defuse_tpu_torch.utils.profiling import RUN_SPANS
-    except ImportError:
-        return None
     n = len(ctx.libraries)
-    runs = list(RUN_SPANS)[-n:] if n else []
+    if n and all("spans" in r for r in ctx.libraries):
+        runs = [r["spans"] for r in ctx.libraries]
+        if None in runs:
+            return None
+    else:
+        try:
+            from defuse_tpu_torch.utils.profiling import RUN_SPANS
+        except ImportError:
+            return None
+        runs = list(RUN_SPANS)[-n:] if n else []
     if not n or len(runs) < n or \
             not any(name in r for r in runs for name in names):
         return None

@@ -6,13 +6,17 @@
 Set-up: import the port while a child process (``prepare.py``) builds or
 loads the configuration's reference dataset (``build/fusionbench/ref/``,
 once per configuration and generator) and generates from ``--seed`` a
-pool of two libraries as paired FASTQ; then warm up on one small library,
-which builds or loads the port's kernels.  The window: ``defuse run``
-through the port's command line (``defuse_tpu_torch.cli.main.main``) in
-this process, the pool's libraries back to back until ``--seconds`` have
-passed; earlier outputs are removed after it.  Then the last run of each
-pooled library is held to the plain reference (``compare.py``), and the
-last line of standard output is the result.  ``--trace 1`` profiles the window and reports the per-layer
+pool of libraries as paired FASTQ; then warm up on one small library,
+which builds or loads the port's kernels.  The window drives the program
+as the configuration's ``verb`` says.  ``run`` (the default): ``defuse
+run`` through the port's command line (``defuse_tpu_torch.cli.main.main``)
+in this process, the pool's two libraries back to back until ``--seconds``
+have passed.  ``cohort``: ``defuse cohort`` over the pool's manifest, a
+process of its own a call and a library (``cohort.py``), call after call
+until ``--seconds`` have passed.  Earlier outputs are removed after the
+window.  Then the last run of each pooled library is held to the plain
+reference (``compare.py``), and the last line of standard output is the
+result.  ``--trace 1`` profiles the window and reports the per-layer
 metrics (``metrics/<name>.py``) instead of the end-to-end ones.
 """
 
@@ -22,6 +26,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -36,6 +41,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
 sys.path[:0] = [str(HERE), str(ROOT)]   # the benchmark's modules, the port
 
+import cohort  # noqa: E402
 import compare  # noqa: E402
 import devtrace  # noqa: E402
 import generator  # noqa: E402
@@ -57,10 +63,6 @@ def forbidden_modules() -> list[str]:
     compared whole (``defuse_tpu_torch`` is not ``defuse_tpu``)."""
     return sorted({m.split(".")[0] for m in list(sys.modules)} &
                   set(FORBIDDEN))
-
-
-def out_bytes(path: pathlib.Path) -> int:
-    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
 def run_library(config, dataset, fq1, fq2, out: pathlib.Path,
@@ -99,9 +101,10 @@ def run_library(config, dataset, fq1, fq2, out: pathlib.Path,
                    (stages | clock.seconds).items()},
         "launches": dict(split_dp_cuda.LAUNCHES),
         "split_dp_impl": counters.get("split_dp_impl"),
+        "screen_route": counters.get("screen_route"),
         "screen_candidates": counters.get("screen_candidates", 0),
         "screen_survivors": counters.get("screen_survivors", 0),
-        "bytes_written": out_bytes(out),
+        "bytes_written": observe.out_bytes(out),
     }
 
 
@@ -146,13 +149,17 @@ def profiled(traced: bool):
 
 
 class Context:
-    """What a per-layer metric's reader reads (``metrics/<name>.py``)."""
+    """What a per-layer metric's reader reads (``metrics/<name>.py``):
+    the window's libraries, its device trace, the screen's work, the
+    card's integer peak and the window's seconds (from its start to the
+    last library's end)."""
 
-    def __init__(self, libraries, trace, screen, peak_ops):
+    def __init__(self, libraries, trace, screen, peak_ops, seconds=None):
         self.libraries = libraries
         self.trace = trace
         self.screen = screen
         self.peak_ops = peak_ops
+        self.seconds = seconds
 
 
 def reader(root: pathlib.Path, name: str):
@@ -225,7 +232,37 @@ def main(argv=None, *, require_card: bool = True, device: str = "cuda",
         shutil.rmtree(work, ignore_errors=True)
 
 
+@dataclasses.dataclass
+class Window:
+    """What a window did, as the report reads it."""
+    libraries: list          # the finished libraries' records, in order
+    kept: dict               # pool index: the output of its last run
+    attempted: int
+    failed: int
+    seconds: float           # from its start to the last library's end
+    rss_peak: int            # bytes
+    mem_peak: int            # bytes on the fullest card
+    trace: object = None     # devtrace.DeviceTrace of a traced window
+    screen: object = None    # ScreenWork of a traced ``run`` window
+    peak_ops: float | None = None
+
+
 def _measure(args, cell, prepared, work, device) -> int:
+    window = _cohort_window if cell.verb == "cohort" else _run_window
+    got = window(args, cell, prepared, work, device)
+    if isinstance(got, int):
+        return got
+    win, setup_s = got
+    found = forbidden_modules()
+    if found:
+        say(f"fusionbench: forbidden modules loaded: {found}")
+        return 4
+    return _report(args, cell, prepared, win, setup_s, device)
+
+
+def _run_window(args, cell, prepared, work, device):
+    """The window of a ``run`` cell: the pool's libraries in turns through
+    the port's command line in this process."""
     import torch
     config, dataset = prepared["config"], prepared["dataset"]
     traced = bool(args.trace)
@@ -278,18 +315,12 @@ def _measure(args, cell, prepared, work, device) -> int:
                     kept[k] = out
                     say(f"[library] {json.dumps(rec)}")
         window_s = t_last - t_w0
-        pairs = sum(r["pairs"] for r in libraries)
         say(f"[window] {len(libraries)} libraries in {window_s:.3f} s; "
             f"resident high-water mark {rss.start} bytes at the start, "
             f"{rss.peak} at the end (reset: {rss.reset}, raised: "
             f"{rss.raised})")
     for out in stale:                 # the harness's own file work, after
         shutil.rmtree(out, ignore_errors=True)
-
-    found = forbidden_modules()
-    if found:
-        say(f"fusionbench: forbidden modules loaded: {found}")
-        return 4
     mem_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
 
     trace = None
@@ -306,20 +337,115 @@ def _measure(args, cell, prepared, work, device) -> int:
         say("fusionbench: the resident high-water mark was not reset and "
             "the window did not raise it above set-up's: no peak to read")
         return 5
-    readings = check_libraries(cell, prepared, kept)
-    off_card = sum(r["split_dp_impl"] != "cuda" or
-                   not r["launches"].get("split_dp_screen")
+    return Window(libraries, kept, attempted, failed, window_s, rss.peak,
+                  mem_peak, trace, screen if traced else None,
+                  peak_ops), setup_s
+
+
+def _cohort_window(args, cell, prepared, work, device):
+    """The window of a ``cohort`` cell: ``defuse cohort`` over the pool's
+    manifest into a fresh directory, call after call until ``--seconds``
+    have passed (``cohort.py``).  The warm-up is one such call over the
+    warm-up library.  The card's timeline is not read (``cohort.py``): a
+    traced window has no ``trace``."""
+    warm = cohort.call(cohort.command(prepared, prepared["warm_manifest"],
+                                      work / "warm_out", 1, device))
+    if warm.rc or cohort.read_call(work / "warm_out", ["warm"])["warm"] \
+            is None:
+        raise RuntimeError(f"the warm-up cohort call exited {warm.rc}")
+    shutil.rmtree(work / "warm_out")
+    say(f"[setup] warm-up cohort call of one library of "
+        f"{prepared['warm_pairs']} pairs: {warm.seconds:.3f} s; FASTQ "
+        f"written {prepared['fastq_bytes']} bytes")
+    names = [f"lib{k}" for k in range(len(prepared["libs"]))]
+    libraries, outs, recs = [], [], {}
+    attempted = failed = rss_peak = 0
+    setup_s = time.perf_counter() - T_START
+    with cohort.CardMemory(device) as card:
+        t_w0 = t_last = time.perf_counter()
+        deadline = t_w0 + args.seconds
+        while time.perf_counter() < deadline:
+            out = work / f"call{len(outs)}"
+            outs.append(out)
+            got = cohort.call(cohort.command(prepared, prepared["manifest"],
+                                             out, cell.workers, device))
+            t_last = time.perf_counter()
+            rss_peak = max(rss_peak, got.maxrss_bytes)
+            recs = cohort.read_call(out, names)
+            if got.rc:              # the user's command failed: none counts
+                recs = dict.fromkeys(names)
+            attempted += len(names)
+            for k, name in enumerate(names):
+                rec = recs[name]
+                if rec is None:
+                    failed += 1
+                    continue
+                rec |= {"pool": k, "call": len(outs),
+                        "pairs": prepared["libs"][k]["pairs"]}
+                libraries.append(rec)
+                shown = {n: v for n, v in rec.items() if n != "spans"}
+                say(f"[library] {json.dumps(shown)}")
+            say(f"[call] {len(outs)}: exit {got.rc}, {got.seconds:.3f} s, "
+                f"ru_maxrss {got.maxrss_bytes} bytes")
+    window_s = t_last - t_w0
+    kept = {k: outs[-1] / name for k, name in enumerate(names)
+            if recs.get(name) is not None}
+    say(f"[window] {len(libraries)} libraries in {len(outs)} cohort calls "
+        f"in {window_s:.3f} s; the largest process's resident high-water "
+        f"mark {rss_peak} bytes; card memory {card.peak} bytes over the "
+        f"window's start")
+    for out in outs[:-1]:             # the harness's own file work, after
+        shutil.rmtree(out, ignore_errors=True)
+    return Window(libraries, kept, attempted, failed, window_s, rss_peak,
+                  card.peak or 0), setup_s
+
+
+def screened_on_device(rec, device) -> bool:
+    """Whether a library's split-read screen ran on ``device``: the
+    program's ``split_dp_impl`` says so, and a launch shows, counted in
+    this process (a ``run`` cell on the card) or, where launches are not
+    counted, as the candidates the program counts once the screen has
+    returned."""
+    impl = "cuda" if device == "cuda" else "torch"
+    launched = rec["launches"].get("split_dp_screen") \
+        if device == "cuda" and "launches" in rec else \
+        rec["screen_candidates"]
+    return rec["split_dp_impl"] == impl and bool(launched)
+
+
+def screen_off_card(libraries, screen: str, device: str) -> int:
+    """The libraries whose screen took another route than the mix asks
+    for: under ``device``, those whose screen did not run on the card (0
+    off the card); under ``auto``, those where the route taken is not the
+    one the program records as its choice (``screen_route.choice``), or
+    where it records none, or records a route forced by the program's
+    ``DEFUSE_DEVICE_SCREEN`` (``screen_route.mode`` other than ``auto``)."""
+    if screen == "device":
+        return sum(not screened_on_device(r, device)
                    for r in libraries) if device == "cuda" else 0
+    def off_choice(rec) -> bool:
+        route = rec.get("screen_route") or {}
+        taken = "device" if screened_on_device(rec, device) else "host"
+        return route.get("mode") != "auto" or route.get("choice") != taken
+    return sum(map(off_choice, libraries))
+
+
+def _report(args, cell, prepared, win, setup_s, device) -> int:
+    """Hold the kept libraries to the reference, and print the result."""
+    import torch
+    readings = check_libraries(cell, prepared, win.kept)
+    off_card = screen_off_card(win.libraries, cell.screen, device)
     ok, worst = compare.judge(readings)
     checks = {k: {"value": worst.get(k), "limit": lim}
               for k, lim in compare.LIMITS.items()}
     checks["screen_off_card"] = {"value": off_card, "limit": 0}
-    ok = ok and off_card == 0 and failed == 0 and bool(libraries)
+    ok = ok and off_card == 0 and win.failed == 0 and bool(win.libraries)
     for k, v in checks.items():
         say(f"check {k}: {v['value']} (limit {v['limit']})")
 
-    if traced:
-        ctx = Context(libraries, trace, screen, peak_ops)
+    if args.trace:
+        ctx = Context(win.libraries, win.trace, win.screen, win.peak_ops,
+                      win.seconds)
         metrics = {}
         for name in cell.per_layer:
             value = reader(cell.root, name)(ctx)
@@ -327,25 +453,25 @@ def _measure(args, cell, prepared, work, device) -> int:
                 metrics[name] = {"value": value, "unit": cell.units[name]}
     else:
         metrics = {
-            "pairs_per_s": pairs / window_s if window_s > 0 else 0.0,
-            "peak_rss_gib": rss.peak / 2 ** 30,
+            "peak_rss_gib": win.rss_peak / 2 ** 30,
             "setup_s": setup_s,
         }
         metrics = {k: {"value": v, "unit": cell.units[k]}
                    for k, v in metrics.items() if k in cell.end_to_end}
     result = {
         "correct": ok,
-        "attempted": attempted,
-        "failed": failed,
+        "attempted": win.attempted,
+        "failed": win.failed,
         "metrics": metrics,
         "device": {
             "platform": "gpu" if device == "cuda" else "cpu",
             "kind": torch.cuda.get_device_name(0) if device == "cuda"
             else "cpu",
             "count": cell.chips,
-            "memory_peak_bytes": mem_peak,
+            "memory_peak_bytes": win.mem_peak,
         },
     }
+    trace = win.trace
     if trace is not None:
         result["device"] |= {"busy_s": trace.busy_s,
                              "window_s": trace.window_s}

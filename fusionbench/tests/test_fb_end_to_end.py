@@ -29,14 +29,14 @@ def test_tiny_run_prints_the_contract_line(tiny_tree, capsys):
     assert list(res)[-1] == "checks"
     assert res["correct"] is True and res["failed"] == 0
     assert res["attempted"] >= 1
-    assert set(res["metrics"]) == {"pairs_per_s", "peak_rss_gib", "setup_s"}
+    assert set(res["metrics"]) == {"peak_rss_gib", "setup_s"}
     assert all(m["value"] > 0 for m in res["metrics"].values())
     for check in res["checks"].values():
         assert check["value"] <= check["limit"]
     traced = result(tiny_tree, capsys, trace=1)
     assert traced["correct"] is True
-    assert {"frontend_s", "discover_s", "run_stages_s"} <= \
-        set(traced["metrics"])
+    assert {"frontend_s", "discover_s", "run_stages_s",
+            "window_pairs_per_s"} <= set(traced["metrics"])
     assert "busy_s" in traced["device"] and "breakdown" in traced
 
 

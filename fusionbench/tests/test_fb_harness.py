@@ -104,3 +104,13 @@ def test_no_card_exits_without_a_result(capsys):
     rc = run.main(["--workload", "wts50.dense", "--seed", "1", "--seconds",
                    "1", "--trace", "0"])
     assert rc != 0 and capsys.readouterr().out == ""
+
+
+def test_window_rate_reads_the_window_libraries():
+    """``window_pairs_per_s``: the finished libraries' pairs over the
+    window's seconds; nothing where the window finished none."""
+    read = run.reader(run.ROOT, "window_pairs_per_s")
+    libs = [{"pairs": 1_000_000}, {"pairs": 1_000_000}, {"pairs": 500_000}]
+    assert read(run.Context(libs, None, None, None, 10.0)) == 250_000.0
+    assert read(run.Context([], None, None, None, 10.0)) is None
+    assert read(run.Context(libs, None, None, None)) is None
