@@ -8,11 +8,16 @@ process it waited for, so a cohort cell's ``peak_rss_gib`` is the memory
 one library's process takes, which is what a job slot is sized by.  What a
 library did is read from what it wrote: ``cohort_summary.tsv`` (its status
 and seconds), its ``metrics.json`` (stages and the program's spans) and
-``metrics.discover.json`` (discover's seconds and counters).  Nothing is
-read of the card's timeline: ``torch.profiler`` in this process sees no
-other process's operations, and the libraries' own profiles, merged, once
-read a twelfth of the work each of them holds (PERF.md, section 6), so
-the device's metrics read nothing in a cohort cell.
+``metrics.discover.json`` (discover's seconds and counters).
+
+The card's timeline of a traced window is read from the library processes'
+own profiles: each window call runs with ``DEFUSE_TORCH_PROFILE`` set to a
+fresh directory (``profile_env``), which the cohort passes on to every
+library process it starts, and each library's run writes its whole
+Chrome trace there (``<dir>/<run id>/trace.json``, the run id of its
+``metrics.json`` spans).  ``torch.profiler`` in the harness's own process
+sees no other process's operations.  An untraced window sets nothing and
+reads no trace.
 """
 
 from __future__ import annotations
@@ -71,6 +76,12 @@ def summary(out: pathlib.Path) -> dict[str, dict]:
         return {r["library"]: r for r in csv.DictReader(fh, delimiter="\t")}
 
 
+def profile_env(directory: pathlib.Path) -> dict:
+    """This process's environment with the program's whole-run profile
+    (``utils.profiling.library``) sent to ``directory``."""
+    return os.environ | {"DEFUSE_TORCH_PROFILE": str(directory)}
+
+
 def span_seconds(run_m: dict) -> dict[str, float] | None:
     """Seconds of each of the program's span names in a library's
     ``metrics.json``, summed (what ``profiling.RUN_SPANS`` holds for a run
@@ -85,11 +96,10 @@ def span_seconds(run_m: dict) -> dict[str, float] | None:
 
 
 def library_record(libdir: pathlib.Path) -> dict:
-    """A finished library's record, in the shape of ``run.run_library``'s:
-    the Runner's read-stats and covariance-sample seconds are the program's
-    spans around the same calls that the harness's clock times in a
-    ``run`` cell; no ``frontend_s``, which is the harness's own clock
-    around the frontend; no launches (they are counted only in-process)."""
+    """A finished library's record, in the shape of ``run.run_library``'s,
+    with the program's span seconds (``spans``) and its run id (``run``,
+    which names its profile's directory); no launches (they are counted
+    only in-process)."""
     run_m = json.loads((libdir / "metrics.json").read_text())
     disc_m = json.loads((libdir / "metrics.discover.json").read_text())
     stages = {s["stage"]: s["seconds"] for s in run_m["stages"]}
@@ -102,7 +112,6 @@ def library_record(libdir: pathlib.Path) -> dict:
         timed.get("read stats", 0.0) + timed.get("covariance samples", 0.0)
     counters = disc_m["counters"]
     return {
-        "frontend_s": None,
         "discover_s": disc_m["total_seconds"],
         "run_stages_s": host,
         "stages": {k: round(v, 4) for k, v in (stages | timed).items()},
@@ -111,6 +120,7 @@ def library_record(libdir: pathlib.Path) -> dict:
         "screen_candidates": counters.get("screen_candidates", 0),
         "screen_survivors": counters.get("screen_survivors", 0),
         "bytes_written": observe.out_bytes(libdir),
+        "run": run_m["spans"][0]["run"] if run_m.get("spans") else None,
         "spans": spans,
     }
 

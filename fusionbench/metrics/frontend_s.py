@@ -1,11 +1,9 @@
 """``frontend_s``: mean seconds a library spends in the aligner frontend
-(``align.frontend.align_reads``): the benchmark's own span around it in a
-``run`` cell, the program's span ``frontend`` around the same call in a
-``cohort`` cell; nothing where a library has neither."""
+(``align.frontend.align_reads``): the program's span ``frontend`` around
+it, in both verbs (``program_spans.mean_seconds``)."""
+
+from program_spans import mean_seconds
 
 
 def read(ctx):
-    values = [r["frontend_s"] for r in ctx.libraries]
-    if not values or None in values:
-        return None
-    return sum(values) / len(values)
+    return mean_seconds(ctx, "frontend")

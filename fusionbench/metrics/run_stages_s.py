@@ -1,9 +1,9 @@
 """``run_stages_s``: mean seconds a library spends in ``pipeline.run``'s
 host stages other than discover (read stats and covariance samples by the
-benchmark's span in a ``run`` cell, by the program's spans around the same
-calls in a ``cohort`` cell; p-values, breakseq, annotation, de novo,
-collate and classify from each run's ``metrics.json``); nothing where a
-library has no such reading."""
+program's spans around the Runner's calls of those names; p-values,
+breakseq, annotation, de novo, collate and classify from each run's
+``metrics.json`` ``stages``; ``cohort.library_record``); nothing where
+a library has no such reading."""
 
 
 def read(ctx):

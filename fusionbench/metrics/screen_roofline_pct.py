@@ -1,7 +1,9 @@
 """``screen_roofline_pct``: the split-read screen's least time on the card
 (its DP cells from the candidates' shapes at ``roofline.CELL_OPS`` a cell
 over the card's integer peak) over ``screen_kernel``'s device time in the
-traced window, in %.  Nothing when the screen did not run on the card."""
+traced window, in %.  Nothing when the screen did not run on the card,
+or ran in another process (a ``cohort`` cell: its cells and the card's
+peak are not read there)."""
 
 import roofline
 

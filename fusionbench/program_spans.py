@@ -3,10 +3,10 @@ them.  A library run in another process (a ``cohort`` cell) carries its
 span seconds in its record (``spans``, from its ``metrics.json``, which the
 same ``Tracer`` writes; None where it records none).  A ``run`` in this
 process leaves a dict of span name to seconds in
-``defuse_tpu_torch.utils.profiling.RUN_SPANS``, read here (``metrics.json``
-is not read: ``run_stages_s`` sums its ``stages``); the window's libraries
-are the last ``len(ctx.libraries)`` entries: runs that failed leave none,
-and no run follows the window."""
+``defuse_tpu_torch.utils.profiling.RUN_SPANS``, read here (its record
+carries no ``spans``); the window's libraries are the last
+``len(ctx.libraries)`` entries: runs that failed leave none, and no run
+follows the window."""
 
 
 def mean_seconds(ctx, *names):

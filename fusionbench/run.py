@@ -16,8 +16,9 @@ process of its own a call and a library (``cohort.py``), call after call
 until ``--seconds`` have passed.  Earlier outputs are removed after the
 window.  Then the last run of each pooled library is held to the plain
 reference (``compare.py``), and the last line of standard output is the
-result.  ``--trace 1`` profiles the window and reports the per-layer
-metrics (``metrics/<name>.py``) instead of the end-to-end ones.
+result.  ``--trace 1`` profiles the window (a cohort window's library
+processes each profile themselves, ``cohort.py``) and reports the
+per-layer metrics (``metrics/<name>.py``) instead of the end-to-end ones.
 """
 
 import time
@@ -49,7 +50,7 @@ import observe  # noqa: E402
 import reference  # noqa: E402
 import roofline  # noqa: E402
 from prepare import CACHE, Cell, find, load_truth  # noqa: E402
-from spans import RssPeak, StageClock  # noqa: E402
+from spans import RssPeak, span  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "defuse_tpu")
 
@@ -66,13 +67,13 @@ def forbidden_modules() -> list[str]:
 
 
 def run_library(config, dataset, fq1, fq2, out: pathlib.Path,
-                clock: StageClock, device: str) -> dict:
+                device: str) -> dict:
     """``defuse run`` on one library through the port's command line;
-    its stage seconds and counters."""
+    its stage seconds and counters, read as a cohort library's are
+    (``cohort.library_record``)."""
     from defuse_tpu_torch.cli.main import main as cli
     from defuse_tpu_torch.ops import split_dp_cuda
     split_dp_cuda.reset_launches()
-    clock.seconds = {}
     t0, c0 = time.perf_counter(), os.times()
     with contextlib.redirect_stdout(sys.stderr):
         rc = cli(["run", "-c", str(config), "-d", str(dataset), "-1",
@@ -82,29 +83,17 @@ def run_library(config, dataset, fq1, fq2, out: pathlib.Path,
     c1 = os.times()
     if rc:
         raise RuntimeError(f"run exited {rc}")
-    run_m = json.loads((out / "metrics.json").read_text())
-    disc_m = json.loads((out / "metrics.discover.json").read_text())
-    stages = {s["stage"]: s["seconds"] for s in run_m["stages"]}
-    host = sum(v for k, v in stages.items() if k != "discover") + \
-        clock.seconds.get("read stats", 0.0) + \
-        clock.seconds.get("covariance samples", 0.0)
-    counters = disc_m["counters"]
+    rec = cohort.library_record(out)
+    # in this process the span readers take the program's spans from
+    # ``profiling.RUN_SPANS`` (``program_spans.py``)
+    del rec["spans"]
     return {
         "seconds": seconds,
         # the process's CPU seconds (all threads): with ``seconds``, whether
         # a slow library did its work slower or waited
         "cpu_s": round(c1.user + c1.system - c0.user - c0.system, 3),
-        "frontend_s": clock.seconds.get("frontend", 0.0),
-        "discover_s": disc_m["total_seconds"],
-        "run_stages_s": host,
-        "stages": {k: round(v, 4) for k, v in
-                   (stages | clock.seconds).items()},
+        **rec,
         "launches": dict(split_dp_cuda.LAUNCHES),
-        "split_dp_impl": counters.get("split_dp_impl"),
-        "screen_route": counters.get("screen_route"),
-        "screen_candidates": counters.get("screen_candidates", 0),
-        "screen_survivors": counters.get("screen_survivors", 0),
-        "bytes_written": observe.out_bytes(out),
     }
 
 
@@ -268,57 +257,53 @@ def _run_window(args, cell, prepared, work, device):
     traced = bool(args.trace)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    with StageClock(traced) as clock:
-        rec = run_library(config, dataset, *prepared["warm"],
-                          work / "warm_out", clock, device)
-        shutil.rmtree(work / "warm_out")
-        say(f"[setup] warm-up library of {prepared['warm_pairs']} pairs: "
-            f"{rec['seconds']:.3f} s; FASTQ written "
-            f"{prepared['fastq_bytes']} bytes")
-        peak_hz = roofline.max_sm_clock_hz() if device == "cuda" else None
-        peak_ops = None if peak_hz is None else roofline.int_peak_ops(
-            torch.cuda.get_device_properties(0).multi_processor_count,
-            peak_hz)
+    rec = run_library(config, dataset, *prepared["warm"], work / "warm_out",
+                      device)
+    shutil.rmtree(work / "warm_out")
+    say(f"[setup] warm-up library of {prepared['warm_pairs']} pairs: "
+        f"{rec['seconds']:.3f} s; FASTQ written "
+        f"{prepared['fastq_bytes']} bytes")
+    peak_hz = roofline.max_sm_clock_hz() if device == "cuda" else None
+    peak_ops = None if peak_hz is None else roofline.int_peak_ops(
+        torch.cuda.get_device_properties(0).multi_processor_count, peak_hz)
 
-        libraries, kept, passes, stale = [], {}, {}, []
-        attempted = failed = 0
-        screen = ScreenWork() if traced else contextlib.nullcontext()
-        setup_s = time.perf_counter() - T_START
-        with RssPeak() as rss, screen, profiled(traced) as prof:
-            span = clock.span("window") if traced else \
-                contextlib.nullcontext()
-            with span:
-                t_w0 = time.perf_counter()
-                t_last = t_w0
-                deadline = t_w0 + args.seconds
-                while time.perf_counter() < deadline:
-                    k = attempted % 2
-                    out = work / f"out{attempted}"
-                    attempted += 1
-                    try:
-                        with clock.span("library"):
-                            rec = run_library(config, dataset,
-                                              *prepared["libs"][k]["fq"],
-                                              out, clock, device)
-                    except Exception:
-                        failed += 1
-                        traceback.print_exc()
-                        stale.append(out)
-                        continue
-                    t_last = time.perf_counter()
-                    passes[k] = passes.get(k, 0) + 1
-                    rec |= {"pool": k, "pass": passes[k],
-                            "pairs": prepared["libs"][k]["pairs"]}
-                    libraries.append(rec)
-                    if k in kept:
-                        stale.append(kept[k])
-                    kept[k] = out
-                    say(f"[library] {json.dumps(rec)}")
-        window_s = t_last - t_w0
-        say(f"[window] {len(libraries)} libraries in {window_s:.3f} s; "
-            f"resident high-water mark {rss.start} bytes at the start, "
-            f"{rss.peak} at the end (reset: {rss.reset}, raised: "
-            f"{rss.raised})")
+    libraries, kept, passes, stale = [], {}, {}, []
+    attempted = failed = 0
+    screen = ScreenWork() if traced else contextlib.nullcontext()
+    setup_s = time.perf_counter() - T_START
+    with RssPeak() as rss, screen, profiled(traced) as prof, \
+            span("window", traced):
+        t_w0 = time.perf_counter()
+        t_last = t_w0
+        deadline = t_w0 + args.seconds
+        while time.perf_counter() < deadline:
+            k = attempted % 2
+            out = work / f"out{attempted}"
+            attempted += 1
+            try:
+                with span("library", traced):
+                    rec = run_library(config, dataset,
+                                      *prepared["libs"][k]["fq"], out,
+                                      device)
+            except Exception:
+                failed += 1
+                traceback.print_exc()
+                stale.append(out)
+                continue
+            t_last = time.perf_counter()
+            passes[k] = passes.get(k, 0) + 1
+            rec |= {"pool": k, "pass": passes[k],
+                    "pairs": prepared["libs"][k]["pairs"]}
+            libraries.append(rec)
+            if k in kept:
+                stale.append(kept[k])
+            kept[k] = out
+            say(f"[library] {json.dumps(rec)}")
+    window_s = t_last - t_w0
+    say(f"[window] {len(libraries)} libraries in {window_s:.3f} s; "
+        f"resident high-water mark {rss.start} bytes at the start, "
+        f"{rss.peak} at the end (reset: {rss.reset}, raised: "
+        f"{rss.raised})")
     for out in stale:                 # the harness's own file work, after
         shutil.rmtree(out, ignore_errors=True)
     mem_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
@@ -329,8 +314,13 @@ def _run_window(args, cell, prepared, work, device):
         win = [(s, e) for n, dev, s, e in events
                if not dev and n == devtrace.SPAN_PREFIX + "window"]
         trace = devtrace.analyse(events, win[0])
-        say(f"[trace] busy {trace.busy_s:.6f} s of {trace.window_s:.6f} s; "
-            f"kernels {json.dumps(trace.kernels)}")
+        # each library run's operations: those that start in its span
+        runs = sorted((s, e) for n, dev, s, e in events if not dev and
+                      n == devtrace.SPAN_PREFIX + "library")
+        say_trace(trace, libraries, [
+            (f"run {i + 1}, pool {i % 2}", devtrace.tally(
+                [ev for ev in events if a <= ev[2] < b]))
+            for i, (a, b) in enumerate(runs)])
     del prof
 
     if not rss.exact:
@@ -342,12 +332,56 @@ def _run_window(args, cell, prepared, work, device):
                   peak_ops), setup_s
 
 
+def say_trace(trace, libraries, parts) -> None:
+    """The ``[trace]`` lines: the window's device time, its screen launches
+    against the libraries that finished, and each library run's screen
+    kernel and copies (``parts``: label, ``devtrace.tally``)."""
+    screens = sum(n for k, n in trace.launches.items()
+                  if "screen_kernel" in k)
+    say(f"[trace] busy {trace.busy_s:.6f} s of {trace.window_s:.6f} s; "
+        f"screen_kernel launches {screens} for {len(libraries)} finished "
+        f"libraries; kernels {json.dumps(trace.kernels)}; launches "
+        f"{json.dumps(trace.launches)}")
+    for label, tally in parts:
+        say(f"[trace] {label}: {json.dumps(tally)}")
+
+
+def cohort_trace(profiles: pathlib.Path, libraries, attempted: int,
+                 w0_ns: int, w1_ns: int):
+    """The card's timeline over a cohort window from every library
+    process's own profile under ``profiles``, on the epoch, from the
+    window's start (``w0_ns``) to its end (``w1_ns``); None, said, where
+    fewer profiles than library processes were found, since a partial
+    timeline would misstate the idle share."""
+    paths = sorted(profiles.rglob("trace.json"))
+    if len(paths) < attempted:
+        say(f"fusionbench: {len(paths)} library profiles for {attempted} "
+            "library processes: the card's timeline is not read")
+        return None
+    names = {r["run"]: f"call {r['call']}, lib{r['pool']}"
+             for r in libraries}
+    events, parts = [], []
+    for path in paths:
+        got = devtrace.chrome_events(path, w0_ns)
+        events += got
+        parts.append((names.get(path.parent.name, path.parent.name),
+                      devtrace.tally(got)))
+    trace = devtrace.analyse(events, (0.0, (w1_ns - w0_ns) / 1e3))
+    say_trace(trace, libraries, parts)
+    first = min((ev[2] for ev in events), default=0.0) / 1e6
+    last = max((ev[3] for ev in events), default=0.0) / 1e6
+    say(f"[trace] the profiles' events lie {first:.6f} to {last:.6f} s "
+        f"into the window of {trace.window_s:.6f} s")
+    return trace
+
+
 def _cohort_window(args, cell, prepared, work, device):
     """The window of a ``cohort`` cell: ``defuse cohort`` over the pool's
     manifest into a fresh directory, call after call until ``--seconds``
     have passed (``cohort.py``).  The warm-up is one such call over the
-    warm-up library.  The card's timeline is not read (``cohort.py``): a
-    traced window has no ``trace``."""
+    warm-up library.  A traced window's calls each profile their library
+    processes into a fresh directory (``cohort.profile_env``); the
+    warm-up's and an untraced window's do not."""
     warm = cohort.call(cohort.command(prepared, prepared["warm_manifest"],
                                       work / "warm_out", 1, device))
     if warm.rc or cohort.read_call(work / "warm_out", ["warm"])["warm"] \
@@ -358,18 +392,22 @@ def _cohort_window(args, cell, prepared, work, device):
         f"{prepared['warm_pairs']} pairs: {warm.seconds:.3f} s; FASTQ "
         f"written {prepared['fastq_bytes']} bytes")
     names = [f"lib{k}" for k in range(len(prepared["libs"]))]
+    profiles = work / "profile"
     libraries, outs, recs = [], [], {}
     attempted = failed = rss_peak = 0
     setup_s = time.perf_counter() - T_START
     with cohort.CardMemory(device) as card:
-        t_w0 = t_last = time.perf_counter()
+        t_w0, w0_ns = time.perf_counter(), time.time_ns()
+        t_last, w1_ns = t_w0, w0_ns
         deadline = t_w0 + args.seconds
         while time.perf_counter() < deadline:
             out = work / f"call{len(outs)}"
             outs.append(out)
+            env = cohort.profile_env(profiles / out.name) if args.trace \
+                else None
             got = cohort.call(cohort.command(prepared, prepared["manifest"],
-                                             out, cell.workers, device))
-            t_last = time.perf_counter()
+                                             out, cell.workers, device), env)
+            t_last, w1_ns = time.perf_counter(), time.time_ns()
             rss_peak = max(rss_peak, got.maxrss_bytes)
             recs = cohort.read_call(out, names)
             if got.rc:              # the user's command failed: none counts
@@ -396,8 +434,12 @@ def _cohort_window(args, cell, prepared, work, device):
         f"window's start")
     for out in outs[:-1]:             # the harness's own file work, after
         shutil.rmtree(out, ignore_errors=True)
+    trace = None
+    if args.trace:
+        trace = cohort_trace(profiles, libraries, attempted, w0_ns, w1_ns)
+        shutil.rmtree(profiles, ignore_errors=True)
     return Window(libraries, kept, attempted, failed, window_s, rss_peak,
-                  card.peak or 0), setup_s
+                  card.peak or 0, trace), setup_s
 
 
 def screened_on_device(rec, device) -> bool:

@@ -1,82 +1,26 @@
-"""The benchmark's own host spans around the program's layers, and the
-window's resident-memory high-water mark.
+"""The benchmark's own host spans in a traced ``run`` window (the window
+and each library), and the window's resident-memory high-water mark.
 
-``StageClock`` is a copy of ``chip_smoke.StageClock``: it wraps the
-frontend (``align_reads``) and the Runner's stages while a ``run`` goes
-through the command line, and opens a span of the same name in the
-profiler's trace when one is recording, so that the device's idle gaps can
-be laid against them.  The program's own stage seconds come from the
-``metrics.json`` and ``metrics.discover.json`` that each run writes.
+The layers inside a library are timed by the program's own spans
+(``metrics.json``, ``profiling.RUN_SPANS``); the harness's spans only
+bound the window and name the idle gaps that no program span covers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import resource
-import time
 
 from devtrace import SPAN_PREFIX
 
 
-class StageClock:
-    """Wall seconds of the frontend and of the Runner's stages (read stats,
-    covariance samples), and spans around the frontend and discover; the
-    runner nests them in a span of the whole library, whose rest is the
-    run's other stages (``devtrace.LABELS``)."""
-
-    def __init__(self, traced: bool):
-        self.traced = traced
-        self.seconds: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        t0 = time.perf_counter()
-        if self.traced:
-            import torch
-            ctx = torch.profiler.record_function(SPAN_PREFIX + name)
-        else:
-            ctx = contextlib.nullcontext()
-        try:
-            with ctx:
-                yield
-        finally:
-            self.seconds[name] = self.seconds.get(name, 0.0) + \
-                time.perf_counter() - t0
-
-    def __enter__(self):
-        from defuse_tpu_torch.align import frontend
-        from defuse_tpu_torch.pipeline import run as run_module
-        from defuse_tpu_torch.pipeline.runner import Runner
-        self._saved = (frontend.align_reads, Runner.run,
-                       run_module.discover_fusions)
-        align_reads, runner_run, discover = self._saved
-        clock = self
-
-        def timed_align(*args, **kw):
-            with clock.span("frontend"):
-                return align_reads(*args, **kw)
-
-        def timed_discover(**kw):
-            with clock.span("discover"):
-                return discover(**kw)
-
-        def timed_run(runner, name, *args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return runner_run(runner, name, *args, **kw)
-            finally:
-                clock.seconds[name] = time.perf_counter() - t0
-
-        frontend.align_reads, Runner.run = timed_align, timed_run
-        run_module.discover_fusions = timed_discover
-        return self
-
-    def __exit__(self, *exc):
-        from defuse_tpu_torch.align import frontend
-        from defuse_tpu_torch.pipeline import run as run_module
-        from defuse_tpu_torch.pipeline.runner import Runner
-        (frontend.align_reads, Runner.run,
-         run_module.discover_fusions) = self._saved
+def span(name: str, traced: bool):
+    """A range ``fusionbench:<name>`` in the profiler's trace around the
+    block where the window is traced; nothing otherwise."""
+    if not traced:
+        return contextlib.nullcontext()
+    import torch
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 class RssPeak:

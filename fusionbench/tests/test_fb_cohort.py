@@ -1,11 +1,13 @@
 """A cell driven through ``defuse cohort`` (a configuration's ``verb``), a
 mix whose screen route is the program's to choose (``screen: auto``), and
 the seeds of a pool of any size: a tiny cohort cell found from new files
-alone prints the contract line with the peak from ``wait4``; a library
+alone prints the contract line with the peak from ``wait4``, and traced,
+the card's timeline from its library processes' own profiles; a library
 process that fails, or whose results are missing, reads as not correct;
 a route that disagrees with the program's recorded choice is counted."""
 
 import json
+import os
 import pathlib
 import sys
 import types
@@ -59,25 +61,44 @@ def cohort_tree(tiny_tree):
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Every cohort call's ``Call``, in order (the warm-up's first)."""
+    """Every cohort call's ``Call`` and the environment it was given (None:
+    this process's), in order (the warm-up's first)."""
     seen = []
     real = cohort.call
 
     def recorded(cmd, env=None):
         got = real(cmd, env)
-        seen.append(got)
+        seen.append((got, env))
         return got
     monkeypatch.setattr(cohort, "call", recorded)
     return seen
 
 
-def result(tree, capsys, workload, trace=0):
+@pytest.fixture
+def records(monkeypatch):
+    """Every library record the harness reads, in order."""
+    seen = []
+    real = cohort.library_record
+
+    def recorded(libdir):
+        rec = real(libdir)
+        seen.append(rec)
+        return rec
+    monkeypatch.setattr(cohort, "library_record", recorded)
+    return seen
+
+
+def result(tree, capsys, workload, trace=0, err=None):
+    """The run's result line; its standard error appended to ``err``."""
     rc = run.main(["--workload", workload, "--seed", str(SEED),
                    "--seconds", "1", "--trace", str(trace)],
                   require_card=False, device="cpu", root=tree,
                   cache=tree / "cache")
     assert rc == 0
-    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = capsys.readouterr()
+    if err is not None:
+        err.append(got.err)
+    return json.loads(got.out.strip().splitlines()[-1])
 
 
 def test_cohort_cell_from_new_files(cohort_tree, capsys, calls):
@@ -91,26 +112,51 @@ def test_cohort_cell_from_new_files(cohort_tree, capsys, calls):
     assert res["attempted"] == 2 * (len(calls) - 1)
     assert set(res["metrics"]) == {"peak_rss_gib", "setup_s"}
     assert all(m["value"] > 0 for m in res["metrics"].values())
+    # no profile asked of any call, nor of the library processes
+    assert all(env is None for _, env in calls)
+    assert "DEFUSE_TORCH_PROFILE" not in os.environ
+    assert not {"busy_s", "window_s"} & set(res["device"])
+    assert "breakdown" not in res
     # the largest wait4 mark of the window's calls; not the warm-up's
-    peak = max(c.maxrss_bytes for c in calls[1:])
+    peak = max(c.maxrss_bytes for c, _ in calls[1:])
     assert res["metrics"]["peak_rss_gib"]["value"] == peak / 2 ** 30
     for check in res["checks"].values():
         assert check["value"] <= check["limit"]
 
 
-def test_traced_cohort_cell_reads_the_programs_spans(cohort_tree, capsys):
+def test_traced_cohort_cell_reads_the_programs_spans(cohort_tree, capsys,
+                                                     calls, records):
     """A traced cohort cell reads the program's spans and stages from each
-    library's files; what only this process's clock or its profiler could
-    read (``frontend_s``, the card's timeline) reads nothing."""
-    res = result(cohort_tree, capsys, "tinyc.few", trace=1)
+    library's files, ``frontend_s`` the mean of its ``frontend`` span, and
+    the card's timeline from each window call's library profiles (the
+    warm-up's not profiled): every per-layer metric that names no
+    ``workloads``, ``busy_s``, ``window_s`` and a breakdown."""
+    err = []
+    res = result(cohort_tree, capsys, "tinyc.few", trace=1, err=err)
     assert res["correct"] is True
-    assert {"discover_s", "run_stages_s", "ingest_s", "index_load_s",
-            "align_job_s", "breakseq_s", "annotation_s",
-            "window_pairs_per_s"} <= set(res["metrics"])
-    assert not {"frontend_s", "device_idle_pct",
-                "screen_roofline_pct"} & set(res["metrics"])
-    assert not {"busy_s", "window_s"} & set(res["device"])
-    assert "breakdown" not in res
+    bench = json.loads((cohort_tree / "BENCHMARK.json").read_text())
+    everywhere = {m["name"] for m in bench["per_layer"]
+                  if "workloads" not in m}
+    assert {"frontend_s", "device_idle_pct"} <= everywhere
+    assert everywhere <= set(res["metrics"])
+    assert "screen_roofline_pct" not in res["metrics"]
+    window = records[-res["attempted"]:]     # the warm-up's read first
+    assert len(window) == res["attempted"] == 2 * (len(calls) - 1)
+    assert res["metrics"]["frontend_s"]["value"] == pytest.approx(
+        sum(r["spans"]["frontend"] for r in window) / len(window),
+        rel=1e-12)
+    device = res["device"]
+    assert device["window_s"] > 0 and 0 <= device["busy_s"] <= \
+        device["window_s"]
+    assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+    # the library processes' ranges name the gaps
+    assert any(n.startswith("defuse:") for n, _ in
+               res["breakdown"]["idle_gaps"])
+    assert f"for {res['attempted']} finished libraries" in err[0]
+    assert calls[0][1] is None
+    dirs = [env["DEFUSE_TORCH_PROFILE"] for _, env in calls[1:]]
+    assert len(set(dirs)) == len(dirs)
+    assert "DEFUSE_TORCH_PROFILE" not in os.environ
 
 
 SHIM = '''import pathlib, subprocess, sys
@@ -282,20 +328,21 @@ def test_library_record_reads_the_programs_files(tmp_path):
         "stages": [{"stage": "discover", "seconds": 1.5},
                    {"stage": "breakseq", "seconds": 0.25},
                    {"stage": "annotation", "seconds": 0.5}],
-        "spans": [{"name": n, "start_ns": int(a * 1e9),
+        "spans": [{"name": n, "run": "r0", "start_ns": int(a * 1e9),
                    "end_ns": int(b * 1e9)} for n, a, b in spans]}))
     (lib / "metrics.discover.json").write_text(json.dumps({
         "total_seconds": 1.4, "counters": {
             "split_dp_impl": "cuda", "screen_candidates": 2500,
             "screen_route": {"choice": "device"}}}))
     rec = cohort.library_record(lib)
-    assert rec["frontend_s"] is None and rec["discover_s"] == 1.4
+    assert "frontend_s" not in rec and rec["discover_s"] == 1.4
+    assert rec["run"] == "r0"
     assert rec["run_stages_s"] == pytest.approx(0.25 + 0.5 + 0.25 + 0.5)
     assert rec["screen_route"] == {"choice": "device"}
     ctx = types.SimpleNamespace(libraries=[rec, rec], trace=None)
     assert run.reader(run.ROOT, "ingest_s")(ctx) == 0.5
     assert run.reader(run.ROOT, "index_load_s")(ctx) == 0.125
-    assert run.reader(run.ROOT, "frontend_s")(ctx) is None
+    assert run.reader(run.ROOT, "frontend_s")(ctx) == 2.0
     assert run.reader(run.ROOT, "breakseq_s")(ctx) == 0.25
     # a program without spans: nothing where a span is needed
     (lib / "metrics.json").write_text(json.dumps({"stages": [

@@ -1,8 +1,9 @@
-"""The readers of the program's own spans (``ingest_s``, ``index_load_s``,
-``align_job_s``) read the window's last runs in ``profiling.RUN_SPANS``
-and nothing where those records are short; those of its stages
-(``breakseq_s``, ``annotation_s``) read the window's libraries'
-``stages``; a tiny traced cell on CPU tensors prints all five."""
+"""The readers of the program's own spans (``frontend_s``, ``ingest_s``,
+``index_load_s``, ``align_job_s``) read the window's last runs in
+``profiling.RUN_SPANS`` and nothing where those records are short; those
+of its stages (``breakseq_s``, ``annotation_s``) read the window's
+libraries' ``stages``; a tiny traced cell on CPU tensors prints all six,
+``frontend_s`` the mean of the window's ``frontend`` spans."""
 
 import collections
 import types
@@ -13,6 +14,7 @@ import run
 from defuse_tpu_torch.utils import profiling
 
 READERS = {
+    "frontend_s": ("frontend",),
     "ingest_s": ("frontend.ingest",),
     "index_load_s": ("frontend.index_load", "breakseq.index_load"),
     "align_job_s": ("frontend.align_job",),
@@ -25,7 +27,7 @@ def record(k):
     ``k + i / 10``, beside spans the readers leave alone."""
     names = sorted({n for spans in READERS.values() for n in spans})
     return {n: k + i / 10 for i, n in enumerate(names)} | {
-        "frontend": 100.0, "breakseq": 50.0, "annotation": 60.0}
+        "breakseq": 50.0, "annotation": 60.0}
 
 
 @pytest.fixture
@@ -63,7 +65,7 @@ def test_reader_reads_nothing_from_short_records(spans, name):
 @pytest.mark.parametrize("name", sorted(READERS))
 def test_reader_reads_nothing_without_the_span(monkeypatch, name):
     monkeypatch.setattr(profiling, "RUN_SPANS",
-                        collections.deque([{"frontend": 1.0}] * 3))
+                        collections.deque([{"discover": 1.0}] * 3))
     assert run.reader(run.ROOT, name)(context(2)) is None
 
 
@@ -110,3 +112,7 @@ def test_traced_tiny_cell_prints_the_span_metrics(tiny_tree, capsys):
     for name in [*READERS, *STAGE_READERS]:
         assert traced["metrics"][name]["value"] > 0, name
         assert traced["metrics"][name]["unit"] == "s"
+    window = list(profiling.RUN_SPANS)[-traced["attempted"]:]
+    assert traced["failed"] == 0
+    assert traced["metrics"]["frontend_s"]["value"] == pytest.approx(
+        sum(r["frontend"] for r in window) / len(window), rel=1e-12)
