@@ -193,8 +193,8 @@ def _command(args) -> int:
                                        args.report_margin)
         from ..pipeline.run import run_pipeline
         if not args.no_device:
-            from ..core.devices import require_cuda
-            require_cuda(args.device)
+            from ..core.devices import require_cuda, start_context
+            start_context(require_cuda(args.device))
         if args.bam:
             if args.fastq1 or args.fastq2:
                 raise SystemExit("give either --bam or -1/-2, not both")

@@ -37,27 +37,29 @@ def load_library(build_if_missing: bool = True):
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists() and build_if_missing:
-        try:
-            subprocess.run(["bash", str(_LIB_PATH.parent / "build.sh")],
-                           check=True, capture_output=True)
-        except Exception:
-            return None
-    if not _LIB_PATH.exists():
-        return None
-    try:
-        return _configure(ctypes.CDLL(str(_LIB_PATH)))
-    except AttributeError:
-        # stale prebuilt .so missing a newer symbol: rebuild once and
-        # retry; degrade to the Python paths rather than raising
-        if not build_if_missing:
+    from ..utils import profiling
+    with profiling.process_span("process.native_load"):
+        if not _LIB_PATH.exists() and build_if_missing:
+            try:
+                subprocess.run(["bash", str(_LIB_PATH.parent / "build.sh")],
+                               check=True, capture_output=True)
+            except Exception:
+                return None
+        if not _LIB_PATH.exists():
             return None
         try:
-            subprocess.run(["bash", str(_LIB_PATH.parent / "build.sh")],
-                           check=True, capture_output=True)
             return _configure(ctypes.CDLL(str(_LIB_PATH)))
-        except Exception:
-            return None
+        except AttributeError:
+            # stale prebuilt .so missing a newer symbol: rebuild once and
+            # retry; degrade to the Python paths rather than raising
+            if not build_if_missing:
+                return None
+            try:
+                subprocess.run(["bash", str(_LIB_PATH.parent / "build.sh")],
+                               check=True, capture_output=True)
+                return _configure(ctypes.CDLL(str(_LIB_PATH)))
+            except Exception:
+                return None
 
 
 def _configure(lib):

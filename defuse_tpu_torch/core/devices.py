@@ -35,6 +35,23 @@ def require_cuda(device="cuda") -> torch.device:
     return dev
 
 
+def start_context(dev: torch.device) -> torch.device:
+    """``dev``; for a CUDA device, the process's first call makes the
+    card's primary context on it with the work a first launch does (CUDA's
+    initialisation, the context, the allocator's first block, a launch),
+    in the process span ``process.cuda_context``
+    (``utils.profiling.process_span``).  ``run`` calls it once it has
+    checked the card, since its device stages make the context anyway."""
+    if dev.type != "cuda":
+        return dev
+    from ..utils import profiling
+    with profiling.process_span("process.cuda_context") as first:
+        if first:
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize(dev)
+    return dev
+
+
 def gpu_identity() -> str:
     """The cards' ``name, power.limit`` lines as nvidia-smi reports them."""
     proc = subprocess.run(

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import threading
 
+from ..utils import profiling
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / \
     "build" / "kernels"
@@ -88,12 +90,16 @@ def build(name: str) -> tuple[pathlib.Path, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    The first load is the process span ``process.bind.<name>``
+    (``utils.profiling.process_span``): under CUDA's lazy module loading
+    a kernel's code loads at its first launch, in its caller's span."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            path, _report = build(name)
-            lib = ctypes.CDLL(str(path))
+            with profiling.process_span(f"process.bind.{name}"):
+                path, _report = build(name)
+                lib = ctypes.CDLL(str(path))
             _LOADED[name] = lib
         return lib
 

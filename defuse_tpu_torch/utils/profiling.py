@@ -1,11 +1,14 @@
-"""Spans, stage metrics, kernel timing and device profiling for the port.
+"""Spans, stage metrics, process memory, kernel timing and device profiling
+for the port.
 
-``Tracer`` records a library's spans, and the stage wall times and
-counters of a metrics artifact; ``library`` opens the Tracer of one ``run``
-(with ``torch.profiler`` over it under ``DEFUSE_TORCH_PROFILE``), which
-every layer below reaches through ``current``; ``RUN_SPANS`` keeps each
-finished run's span seconds for readers in the same process;
-``cuda_time_ms`` times a kernel by CUDA events.
+``Tracer`` records a library's spans, each with the process's resident
+high-water mark at its edges, and the stage wall times and counters of a
+metrics artifact; ``library`` opens the Tracer of one ``run`` (with
+``torch.profiler`` over it under ``DEFUSE_TORCH_PROFILE``), which every
+layer below reaches through ``current``; ``RUN_SPANS`` and ``RUN_MEMORY``
+keep each finished run's span seconds and memory record for readers in the
+same process; ``process_span`` records the process's start
+(``PROCESS_SPANS``); ``cuda_time_ms`` times a kernel by CUDA events.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import itertools
 import json
 import os
 import pathlib
+import resource
 import time
 import uuid
 
@@ -25,7 +29,21 @@ import torch
 SPAN_PREFIX = "defuse:"
 # one dict a finished run (``library``): span name -> seconds summed
 RUN_SPANS: collections.deque = collections.deque(maxlen=1024)
+# one dict a finished run (``library``): the mark at its entry (``start``)
+# and exit (``end``), and span name -> the rise of the mark in bytes,
+# summed (``rise``)
+RUN_MEMORY: collections.deque = collections.deque(maxlen=1024)
+# the process's start, a record a span (``process_span``), as they closed
+PROCESS_SPANS: list[dict] = []
+_PROCESS_NAMES: set[str] = set()   # the process spans opened so far
+_process_written = 0               # those a metrics.json carries
 _LIBRARIES: list[Tracer] = []   # the open libraries' Tracers, innermost last
+
+
+def rss_hwm() -> int:
+    """The process's resident high-water mark in bytes (``getrusage``'s
+    ``ru_maxrss``): a system call, 3-5 µs on the H100's host."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def _profiler_on() -> bool:
@@ -38,7 +56,10 @@ class Tracer:
     A span (``span``, ``stage``) is a stretch of the run on
     ``time.perf_counter_ns`` (CLOCK_MONOTONIC, the clock of the native
     library's ``steady_clock``) with its name, the span open around it (its
-    parent), the run's identifier and counts taken at its edges.  While
+    parent), the run's identifier and counts taken at its edges: the
+    process's resident high-water mark at its exit (``rss_hwm``, bytes)
+    and its rise over the span (``rss_hwm_rise``), which is 0 unless the
+    span set a new peak (the program never resets the mark).  While
     ``torch.profiler`` records, each span opened here is also a range
     ``defuse:<name>`` of the profiler's host events, on its clock (a
     function-scope record, which the profiler does not mirror onto the
@@ -68,6 +89,7 @@ class Tracer:
         self.stages: list[dict] = []
         self.counters: dict[str, float] = {}
         self._path = (pathlib.Path(outdir) / artifact) if outdir else None
+        self.memory: dict | None = None   # a library's (``library``)
 
     def part(self, outdir: str, artifact: str) -> Tracer:
         """A Tracer of its own stages, counters and artifact whose spans
@@ -87,39 +109,52 @@ class Tracer:
 
     def stage(self, name: str | None) -> None:
         """Close this Tracer's open stage, recording it under ``stages``,
-        and open stage ``name`` (none when None)."""
+        and open stage ``name`` (none when None), which starts at the clock
+        and the mark its predecessor ended at: stages abut."""
         root = self._root
+        edge = None
         if self._stage is not None:
-            _sid, done, _p, start, end, *_ = root._exit(self._stage)
+            _sid, done, _p, start, end, counts = root._exit(self._stage)
             self.stages.append({"stage": done,
                                 "seconds": round((end - start) / 1e9, 4)})
             self._t1 = end
             self._stage = None
+            edge = end, counts["rss_hwm"]
         if name is not None:
-            self._stage = root._enter(name, {})
+            self._stage = root._enter(name, {}, edge)
             if not self.stages:
                 self._t0 = root._open[-1][3]
 
     def count(self, name: str, value: float) -> None:
         self.counters[name] = self.counters.get(name, 0) + value
 
-    def _enter(self, name: str, counts: dict) -> int:
+    def _enter(self, name: str, counts: dict,
+               edge: tuple[int, int] | None = None) -> int:
+        """Open span ``name`` at ``edge`` (its clock and mark), else now."""
         rf = None
         if _profiler_on():
             rf = torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
             rf.__enter__()
         sid = next(self._ids)
+        if edge is None:
+            counts["rss_hwm"] = rss_hwm()     # the entry's, until the exit
+            start = time.perf_counter_ns()
+        else:
+            start, counts["rss_hwm"] = edge
         self._open.append([sid, name, self._open[-1][0] if self._open
-                           else None, time.perf_counter_ns(), None, counts,
-                           rf])
+                           else None, start, None, counts, rf])
         return sid
 
     def _exit(self, sid: int) -> list:
         """Close span ``sid`` and any left open inside it."""
         end = time.perf_counter_ns()
+        mark = rss_hwm()
         while self._open:
             rec = self._open.pop()
             rec[4] = end
+            counts = rec[5]
+            counts["rss_hwm_rise"] = mark - counts["rss_hwm"]
+            counts["rss_hwm"] = mark
             rf = rec.pop()
             if rf is not None:
                 rf.__exit__(None, None, None)
@@ -164,6 +199,14 @@ class Tracer:
             out[rec[1]] = out.get(rec[1], 0.0) + (rec[4] - rec[3]) / 1e9
         return out
 
+    def span_rises(self) -> dict[str, int]:
+        """The rise of the resident high-water mark in each span name's
+        spans, in bytes, summed over the run."""
+        out: dict[str, int] = {}
+        for rec in self.spans:
+            out[rec[1]] = out.get(rec[1], 0) + rec[5].get("rss_hwm_rise", 0)
+        return out
+
     def flush(self) -> str | None:
         if self._path is None:
             return None
@@ -176,7 +219,13 @@ class Tracer:
             "counters": self.counters,
         }
         if self._root is self:
+            global _process_written
             payload["spans"] = self.span_records()
+            if self.memory is not None:
+                payload["memory"] = self.memory
+            if len(PROCESS_SPANS) > _process_written:
+                payload["process_spans"] = PROCESS_SPANS[_process_written:]
+                _process_written = len(PROCESS_SPANS)
         tmp = self._path.with_name(self._path.name + ".tmp")
         tmp.write_text(json.dumps(payload, indent=1))
         tmp.replace(self._path)
@@ -193,8 +242,11 @@ def current() -> Tracer:
 def library(outdir: str):
     """The Tracer of one library's run into ``outdir``, ``current`` while
     open; opened again for the same ``outdir``, the one already open.  On
-    a clean exit its ``metrics.json`` is written and its span seconds are
-    added to ``RUN_SPANS``.  Under ``DEFUSE_TORCH_PROFILE=<dir>``,
+    a clean exit its ``metrics.json`` is written, with its ``memory`` (the
+    ``RUN_MEMORY`` record) and the process spans that no earlier
+    ``metrics.json`` of the process carried (``process_spans``), and its
+    span seconds and memory record are added to ``RUN_SPANS`` and
+    ``RUN_MEMORY``.  Under ``DEFUSE_TORCH_PROFILE=<dir>``,
     ``torch.profiler`` records the whole run: a Chrome trace, with a
     ``defuse:`` range for every span, and a kernel table land in
     ``<dir>/<run id>/``."""
@@ -203,6 +255,7 @@ def library(outdir: str):
         yield _LIBRARIES[-1]
         return
     tracer = Tracer(outdir)
+    start = {"rss_hwm": rss_hwm()}
     trace_dir = os.environ.get("DEFUSE_TORCH_PROFILE")
     profiled = _profiled(pathlib.Path(trace_dir) / tracer.run_id) \
         if trace_dir else contextlib.nullcontext()
@@ -214,10 +267,51 @@ def library(outdir: str):
             finally:
                 if tracer._open:        # a failed run's
                     tracer._exit(tracer._open[0][0])
+                end = {"rss_hwm": rss_hwm()}
     finally:
         _LIBRARIES.remove(tracer)
+    tracer.memory = {"start": start, "end": end,
+                     "rise": tracer.span_rises()}
     tracer.flush()
     RUN_SPANS.append(tracer.span_seconds())
+    RUN_MEMORY.append(tracer.memory)
+
+
+@contextlib.contextmanager
+def process_span(name: str):
+    """A span of the process's start, once a process, on the spans' clock:
+    the first time ``name`` opens, its record lands in ``PROCESS_SPANS``
+    with the mark at its exit and its rise, and it yields True; every later
+    time it records nothing and yields False.  It stays out of the
+    library's span tree, which only the thread that runs the library may
+    touch."""
+    if name in _PROCESS_NAMES:
+        yield False
+        return
+    _PROCESS_NAMES.add(name)
+    mark, start = rss_hwm(), time.perf_counter_ns()
+    yield True
+    end, rise = time.perf_counter_ns(), rss_hwm() - mark
+    PROCESS_SPANS.append(_process_record(
+        name, start, end, {"rss_hwm": mark + rise, "rss_hwm_rise": rise}))
+
+
+def _process_record(name: str, start: int, end: int, counts: dict) -> dict:
+    return {"name": name, "start_ns": start, "end_ns": end,
+            "seconds": round((end - start) / 1e9, 6), "counts": counts}
+
+
+def _imported() -> None:
+    """Close ``process.import``: from the package's first line to the end
+    of this module's first import, ``torch``'s included unless the program
+    had loaded it before the package (``torch_preloaded``)."""
+    import defuse_tpu_torch as package
+    end, mark = time.perf_counter_ns(), rss_hwm()
+    _PROCESS_NAMES.add("process.import")
+    PROCESS_SPANS.append(_process_record(
+        "process.import", package._START_NS, end,
+        {"rss_hwm": mark, "rss_hwm_rise": mark - package._START_RSS_HWM,
+         "torch_preloaded": int(package._TORCH_PRELOADED)}))
 
 
 def runs_library(fn):
@@ -282,3 +376,6 @@ def cuda_time_ms(fn, reps: int, graph: bool = False, rounds: int = 1) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
+
+
+_imported()

@@ -38,6 +38,21 @@ COPIED = (
     "parallel/launch.py", "ops/verify_batch.py", "pipeline/discover.py",
     "core/devices.py")
 
+
+
+def definitions_but(module: str, *names: str) -> tuple[str, ...]:
+    """Every top-level ``def``, ``class`` and assigned name of the
+    reference's ``module`` but ``names``."""
+    out = []
+    for node in ast.parse((REFERENCE / module).read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.append(node.name)
+        targets = node.targets if isinstance(node, ast.Assign) else \
+            [node.target] if isinstance(node, ast.AnnAssign) else []
+        out += [t.id for t in targets if isinstance(t, ast.Name)]
+    return tuple(n for n in out if n not in names)
+
+
 # module: (why it differs, names whose source must still be the reference's)
 DIVERGED = {
     "align/frontend.py": (
@@ -61,6 +76,11 @@ DIVERGED = {
         ("Candidate", "collect_candidates", "_np_rows",
          "collect_candidates_native", "_native_rows",
          "realign_candidates_native", "_columns", "_pad_len")),
+    "cluster/native.py": (
+        "load_library's first load of the library is the process span "
+        "process.native_load of utils.profiling; the rest is the "
+        "reference's text",
+        definitions_but("cluster/native.py", "load_library")),
     "cluster/discordant.py": (
         "cluster_alignments takes the device its batched EM runs on "
         "(em_mode='device'), checks it before anything else and hands it "
@@ -101,7 +121,8 @@ DIVERGED = {
         ("create_reference",)),
     "cli/main.py": (
         "run and cohort take --device {cuda,cpu} and check the card at "
-        "once; run is a library of utils.profiling (its Tracer and, under "
+        "once (run then makes its context, core.devices.start_context); "
+        "run is a library of utils.profiling (its Tracer and, under "
         "DEFUSE_TORCH_PROFILE, torch.profiler over the whole command); the "
         "other six verbs are the reference's text",
         ("_find_or_materialize_pair_sam",)),
@@ -140,7 +161,9 @@ DIVERGED = {
         ()),
     "core/devices.py": (
         "require_cuda and gpu_identity in place of the TPU probe "
-        "subprocess and the compilation cache; link_profile returns the "
+        "subprocess and the compilation cache; start_context makes the "
+        "card's context in the process span process.cuda_context; "
+        "link_profile returns the "
         "card's link as constants measured on it, with the reference's "
         "DEFUSE_LINK_BW/DEFUSE_LINK_RTT override, and probes nothing",
         ()),
@@ -159,8 +182,10 @@ DIVERGED = {
         "perf_counter_ns (host ranges while torch.profiler records) "
         "with stages that are spans, library opens a run's "
         "Tracer and profiles the whole run under DEFUSE_TORCH_PROFILE, "
-        "RUN_SPANS keeps each run's span seconds; cuda_time_ms is the "
-        "port's",
+        "RUN_SPANS keeps each run's span seconds; every span records the "
+        "process's resident high-water mark at its edges, RUN_MEMORY keeps "
+        "each run's memory record and PROCESS_SPANS the process's start "
+        "(process_span); cuda_time_ms is the port's",
         ()),
 }
 

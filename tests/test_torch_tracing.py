@@ -6,10 +6,17 @@ top-level spans over the command's wall, the frontend's parts over the
 frontend, and ``stages`` as before.  Under ``DEFUSE_TORCH_PROFILE`` every span is a
 ``defuse:`` host range of the run's trace; with no profiler recording no
 profiler record is entered.  Breakseq's per-target calls write the files
-of one call over every target, each span with the counts of its pass."""
+of one call over every target, each span with the counts of its pass.
+Every span carries the process's resident high-water mark at its exit and
+its rise over the span; a process's start spans land once, in its first
+``metrics.json`` (these run in fresh processes, whose marks no earlier
+test has raised)."""
 
 import json
+import os
 import pathlib
+import subprocess
+import sys
 import time
 
 import pytest
@@ -20,6 +27,8 @@ from defuse_tpu_torch.utils import profiling, synth
 
 from synthdata import make_dataset, write_dataset
 
+REPO = pathlib.Path(__file__).resolve().parent.parent
+MB = 10 ** 6
 RUN_STAGES = ["discover", "pvalues", "breakseq", "annotation", "denovo",
               "collate+classify"]
 FRONTEND = ("frontend.ingest", "frontend.index_load", "frontend.align_job")
@@ -54,6 +63,14 @@ def traced(library):
     tmp, args = library
     run(args, tmp / "warm")
     return run(args, tmp / "run")
+
+
+def without_marks(counts):
+    """A span's counts less the resident high-water mark at its exit and
+    its rise over the span, which every span carries."""
+    rest = dict(counts)
+    assert rest.pop("rss_hwm") > 0 and rest.pop("rss_hwm_rise") >= 0
+    return rest
 
 
 def covered(intervals):
@@ -140,7 +157,7 @@ def test_align_job_is_one_span_a_shard(traced):
     (job,) = [s for s in metrics["spans"]
               if s["name"] == "frontend.align_job"]
     assert job["parent"] == by_name["frontend"]["id"]
-    assert job["counts"] == {"pairs": 120}
+    assert without_marks(job["counts"]) == {"pairs": 120}
     assert job["start_ns"] >= by_name["frontend.index_load"]["end_ns"] >= \
         by_name["frontend.ingest"]["end_ns"]
     assert job["self_seconds"] == job["seconds"] > 0
@@ -201,7 +218,7 @@ def test_no_record_function_while_the_profiler_is_off(monkeypatch):
         tracer.stage(None)
     assert entered == []
     assert [r[1] for r in tracer.spans] == ["b", "a"]
-    assert tracer.spans[1][5] == {"n": 1, "m": 2}
+    assert without_marks(tracer.spans[1][5]) == {"n": 1, "m": 2}
 
 
 def test_stage_timing_echo_prints_each_span(monkeypatch, capsys, tmp_path):
@@ -276,8 +293,8 @@ def test_breakseq_target_spans_count_their_pass(traced, library):
     assert len(spans) == 4
     for s in spans:
         counts = s["counts"]
-        assert sorted(counts) == ["blocks", "hits", "queries", "rows",
-                                  "seeds"], s["name"]
+        assert sorted(without_marks(counts)) == [
+            "blocks", "hits", "queries", "rows", "seeds"], s["name"]
         assert counts["queries"] == queries
         assert counts["seeds"] >= queries
         assert counts["hits"] >= counts["blocks"] > 0
@@ -325,3 +342,138 @@ def test_breakseq_per_target_writes_the_files_of_one_call(tmp_path):
         one = pathlib.Path(whole[label]).read_bytes()
         assert one == pathlib.Path(each[label]).read_bytes(), label
     assert pathlib.Path(whole["genome"]).stat().st_size > 0
+
+
+def in_fresh_process(code: str, *args: str) -> str:
+    """The last line of what ``code`` prints, run by a new interpreter from
+    the repository's root.  Linux carries a process's resident high-water
+    mark across ``exec``, and a child of this process would start at this
+    process's mark: the interpreter is a child of ``sh``, which starts at
+    its own."""
+    env = os.environ | {"PYTHONPATH": str(REPO)}
+    proc = subprocess.run(["sh", "-c", '"$@"; exit $?', "sh",
+                           sys.executable, "-c", code, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout.strip().splitlines()[-1]
+
+
+SPANS_IN_A_FRESH_PROCESS = """
+import json
+import numpy as np
+from defuse_tpu_torch.utils import profiling
+tracer = profiling.Tracer()
+with tracer.span("outer"):
+    with tracer.span("big", n=1):
+        block = np.ones(256 * 2 ** 20 // 8)
+    with tracer.span("empty"):
+        pass
+print(json.dumps({r["name"]: r["counts"] for r in tracer.span_records()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def marked():
+    return json.loads(in_fresh_process(SPANS_IN_A_FRESH_PROCESS))
+
+
+def test_span_records_the_rise_of_the_mark(marked):
+    """256 MiB of new NumPy memory raise the mark by over 240 MB in their
+    span; an empty span raises it by under 8 MB."""
+    assert marked["big"]["rss_hwm_rise"] >= 240 * MB
+    assert 0 <= marked["empty"]["rss_hwm_rise"] < 8 * MB
+    assert marked["empty"]["rss_hwm"] >= marked["big"]["rss_hwm"]
+
+
+def test_nested_spans_carry_their_own_counts(marked):
+    outer, big, empty = marked["outer"], marked["big"], marked["empty"]
+    assert big["n"] == 1 and "n" not in outer and "n" not in empty
+    assert outer["rss_hwm"] == empty["rss_hwm"]
+    assert outer["rss_hwm_rise"] >= big["rss_hwm_rise"] + \
+        empty["rss_hwm_rise"]
+    assert outer["rss_hwm_rise"] - big["rss_hwm_rise"] < 8 * MB
+
+
+TWO_RUNS_IN_A_FRESH_PROCESS = """
+import json, sys
+from defuse_tpu_torch.cli import main as cli
+from defuse_tpu_torch.utils import profiling
+args = json.loads(sys.argv[1])
+for out in sys.argv[2:]:
+    assert cli.main(["run", "-o", out] + args) == 0
+print(json.dumps(list(profiling.RUN_MEMORY)))
+"""
+
+
+@pytest.fixture(scope="module")
+def two_runs(library):
+    """Two ``run``s of the library on the CPU in one fresh process: their
+    ``metrics.json`` and the process's ``RUN_MEMORY``."""
+    tmp, args = library
+    outs = [tmp / "fresh_first", tmp / "fresh_second"]
+    memory = json.loads(in_fresh_process(
+        TWO_RUNS_IN_A_FRESH_PROCESS, json.dumps(args), *map(str, outs)))
+    return [json.loads((o / "metrics.json").read_text()) for o in outs], \
+        memory
+
+
+def test_process_start_spans_land_once_in_the_first_metrics(two_runs):
+    (first, second), _memory = two_runs
+    spans = first["process_spans"]
+    names = [s["name"] for s in spans]
+    assert len(set(names)) == len(names)
+    assert names[0] == "process.import" and "process.native_load" in names
+    assert "process_spans" not in second
+    imported = spans[0]["counts"]
+    assert imported["torch_preloaded"] == 0
+    assert imported["rss_hwm"] >= imported["rss_hwm_rise"] > 0
+    for span in spans[1:]:       # inside the run, on the spans' clock
+        assert first["spans"][0]["start_ns"] <= span["start_ns"] <= \
+            span["end_ns"] <= first["spans"][-1]["end_ns"]
+        assert span["counts"]["rss_hwm"] >= span["counts"]["rss_hwm_rise"]
+
+
+def test_cpu_process_makes_no_cuda_context(two_runs):
+    (first, _second), _memory = two_runs
+    names = [s["name"] for s in first["process_spans"]]
+    assert not any(n == "process.cuda_context" or
+                   n.startswith("process.bind.") for n in names)
+
+
+def test_require_cuda_only_checks_and_cpu_makes_no_context():
+    """``require_cuda`` makes no context and records nothing, whatever it
+    answers; ``start_context`` leaves a CPU device alone."""
+    import torch
+    from defuse_tpu_torch.core import devices
+    before = list(profiling.PROCESS_SPANS)
+    cpu = devices.start_context(devices.require_cuda("cpu"))
+    assert cpu == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            devices.require_cuda("cuda")
+    assert profiling.PROCESS_SPANS == before
+    assert "process.cuda_context" not in [
+        s["name"] for s in profiling.PROCESS_SPANS]
+
+
+def test_each_run_leaves_its_memory_record(two_runs):
+    """A run's ``memory``: the mark at its entry and exit, and the rise of
+    each span name, as ``RUN_MEMORY`` keeps it."""
+    (first, second), memory = two_runs
+    assert memory == [first["memory"], second["memory"]]
+    for metrics in (first, second):
+        record = metrics["memory"]
+        start, end = record["start"], record["end"]
+        assert start == {"rss_hwm": start["rss_hwm"]}
+        assert 0 < start["rss_hwm"] <= end["rss_hwm"]
+        rises = {}
+        for span in metrics["spans"]:
+            rises[span["name"]] = rises.get(span["name"], 0) + \
+                span["counts"]["rss_hwm_rise"]
+        assert record["rise"] == rises
+        top = sum(s["counts"]["rss_hwm_rise"] for s in metrics["spans"]
+                  if s["parent"] is None)
+        assert top <= end["rss_hwm"] - start["rss_hwm"]
+    assert second["memory"]["start"]["rss_hwm"] >= \
+        first["memory"]["end"]["rss_hwm"]
