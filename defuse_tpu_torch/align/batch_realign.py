@@ -171,52 +171,6 @@ def realign_candidates_native(realigner,
     return _native_rows(ref1s, ref2s, reads, candidates)
 
 
-def realign_candidates_screened(realigner,
-                                candidates: list[Candidate],
-                                device="cuda") -> list[SplitRow]:
-    """Device-screened realignment, transfer-lean: unique fusion flanks +
-    raw reads up, per-candidate max scores down
-    (``ops.split_dp_cuda.screen_candidates`` on ``device``); screen
-    survivors are enumerated by the native realigner.  Byte-identical rows
-    to ``realign_candidates``."""
-    if not candidates:
-        return []
-    import numpy as np
-
-    from ..convert import screen_operands
-    from ..core.devices import require_cuda
-    from ..ops.split_dp_batch import pad_batch
-    from ..ops.split_dp_cuda import screen_candidates
-
-    tasks = realigner.tasks
-    cluster_ids = sorted({c.cluster_id for c in candidates})
-    cid_to_u = {cid: i for i, cid in enumerate(cluster_ids)}
-    uref1s = [tasks[cid].split_align_seq[0] for cid in cluster_ids]
-    uref2s = [tasks[cid].split_align_seq[1] for cid in cluster_ids]
-    reads = [c.read_seq for c in candidates]
-
-    R = _pad_len(max((max(len(a), len(b))
-                      for a, b in zip(uref1s, uref2s)), default=1))
-    L = _pad_len(max((len(r) for r in reads), default=1), 64)
-    u1p, u1l = pad_batch(uref1s, R)
-    u2rp, u2l = pad_batch([s[::-1] for s in uref2s], R)
-    rp, rl = pad_batch(reads, L)
-    ref_idx = np.array([cid_to_u[c.cluster_id] for c in candidates],
-                       dtype=np.int32)
-    min_scores = np.array([accept_threshold(int(l)) for l in rl],
-                          dtype=np.int32)
-
-    max_scores = screen_candidates(*screen_operands(
-        u1p, u1l, u2rp, u2l, ref_idx, rp, rl, min_scores,
-        require_cuda(device))).cpu().numpy()
-    survivors = np.nonzero(max_scores > 0)[0].tolist()
-    if not survivors:
-        return []
-    ref1s = [tasks[c.cluster_id].split_align_seq[0] for c in candidates]
-    ref2s = [tasks[c.cluster_id].split_align_seq[1] for c in candidates]
-    return _native_rows(ref1s, ref2s, reads, candidates, subset=survivors)
-
-
 def realign_candidates(realigner, candidates: list[Candidate],
                        rowmax_fn, native_enum: bool = False,
                        device="cuda") -> list[SplitRow]:

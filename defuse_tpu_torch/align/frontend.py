@@ -379,7 +379,9 @@ def align_job(*, cdna_index: SeedIndex, genome_index: SeedIndex,
               prefilter_index: SeedIndex | None = None,
               force_python: bool = False, frag_base: int = 0,
               append: bool = False, write_sam: bool = True):
-    """Run the full alignjob flow.  Returns paths dict.
+    """Run the full alignjob flow.  Returns the paths of its artifacts
+    (``spanning``, ``improper``, ``concordant_sam``, ``pair_table``) and
+    the read ``stats``.
 
     ``write_sam=False`` (native path only) skips the pair-SAM text
     checkpoint: the binary pair table carries everything the SAM does
@@ -390,9 +392,7 @@ def align_job(*, cdna_index: SeedIndex, genome_index: SeedIndex,
     ``frag_base`` offsets every fragment id written to the artifact
     files (spanning/improper/pair sam/pair tbl) so data-parallel shards
     emit globally-correct ids and the shard merge degenerates to a raw
-    byte append (``defuse_run.pl:387-400`` merge semantics).  The
-    returned ``concordant_fragments``/``blacklist`` sets stay
-    shard-local indices.
+    byte append (``defuse_run.pl:387-400`` merge semantics).
 
     ``append`` opens every artifact in append mode: sequential shards
     can write straight into the final files (shard 0 truncates with
@@ -598,8 +598,6 @@ def align_job(*, cdna_index: SeedIndex, genome_index: SeedIndex,
         "concordant_sam": str(cdna_pair_sam),
         "pair_table": str(cdna_pair_tbl),
         "stats": stats,
-        "concordant_fragments": concordant,
-        "blacklist": blacklist,
     }
 
 
@@ -642,7 +640,7 @@ def _align_job_native(*, cdna_index, genome_index, rrna_index,
         append=append)
     if res is None:
         return None
-    (n_pairs, sum_isize, sumsq_isize), concordant, blacklist = res
+    n_pairs, sum_isize, sumsq_isize = res
     import numpy as _np
 
     def _lenset(reads):
@@ -664,8 +662,6 @@ def _align_job_native(*, cdna_index, genome_index, rrna_index,
         "concordant_sam": str(cdna_pair_sam) if write_sam else None,
         "pair_table": str(cdna_pair_tbl),
         "stats": stats,
-        "concordant_fragments": concordant,
-        "blacklist": blacklist,
     }
 
 

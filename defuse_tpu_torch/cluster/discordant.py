@@ -79,16 +79,6 @@ class ClusterRow:
             self.end)
 
 
-def check_concordant(frag_rows, min_fusion_range: int) -> bool:
-    """True if both read ends bin to a common (ref, range-bin)
-    (``clustermatepairs.cpp:211-244``)."""
-    bins = [set(), set()]
-    for (_frag, read_end, ref, _strand, start, end) in frag_rows:
-        for b in _get_bins(start, end, min_fusion_range, min_fusion_range):
-            bins[read_end].add((ref, b))
-    return not bins[0].isdisjoint(bins[1])
-
-
 def add_bin_pairs(frag_rows, min_fusion_range: int, bin_pairs: dict) -> None:
     """Accumulate a fragment's alignments into bin-pair buckets
     (``clustermatepairs.cpp:246-290``).
@@ -159,12 +149,6 @@ def _filter_overlapping(frag_to_aligns, strand, starts, ends, ref, read_ends,
                 seen[end_idx].add((refstrand_id, b))
             kept.append(ai)
         frag_to_aligns[frag] = kept
-
-
-@dataclasses.dataclass
-class BinPairResult:
-    """Clusters discovered within one bin pair, before global numbering."""
-    rows: list  # list of list[ClusterRow-args tuples] per cluster
 
 
 @dataclasses.dataclass

@@ -162,29 +162,6 @@ def _iptr(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
 
 
-def em_cluster(x, y, u, params) -> list[list[int]]:
-    """Exact EM clustering of one instance via the native library."""
-    lib = load_library()
-    x = np.ascontiguousarray(x, dtype=np.float64)
-    y = np.ascontiguousarray(y, dtype=np.float64)
-    u = np.ascontiguousarray(u, dtype=np.float64)
-    n = len(x)
-    members = np.zeros(max(1, K_MAX * n), dtype=np.int32)
-    sizes = np.zeros(K_MAX, dtype=np.int32)
-    count = lib.dt_em_cluster(
-        _dptr(x), _dptr(y), _dptr(u), n,
-        ctypes.c_double(params.fragment_mean),
-        ctypes.c_double(params.fragment_stddev),
-        ctypes.c_double(params.precision), params.min_cluster_size,
-        _iptr(members), _iptr(sizes))
-    out = []
-    pos = 0
-    for c in range(count):
-        out.append(members[pos:pos + sizes[c]].tolist())
-        pos += sizes[c]
-    return out
-
-
 def em_cluster_batch(instances, params, n_threads: int = 0):
     """Threaded exact EM over many instances.  Returns list of cluster
     lists per instance."""
@@ -915,12 +892,12 @@ def align_job_native(*, cdna_index, genome_index, rrna_index,
                      max_paired, concord_len, max_alignments,
                      max_mismatch=2, max_per_seed=256, n_threads=0,
                      frag_base=0, append=False):
-    """Full alignjob flow in C++.  Returns (stats, concordant set,
-    blacklist set) or None when the native path cannot run (then the
-    caller uses the Python path).  ``frag_base`` offsets every emitted
-    fragment id (data-parallel shards write globally-correct ids so the
-    merge is a raw byte append — defuse_run.pl:387-400 semantics without
-    the rewrite pass); the returned sets stay shard-local.  ``append``
+    """Full alignjob flow in C++.  Returns the read stats
+    ``(n_pairs, sum_isize, sumsq_isize)`` or None when the native path
+    cannot run (then the caller uses the Python path).  ``frag_base``
+    offsets every emitted fragment id (data-parallel shards write
+    globally-correct ids so the merge is a raw byte append —
+    defuse_run.pl:387-400 semantics without the rewrite pass).  ``append``
     opens every artifact in append mode so sequential shards write
     straight into the final files (gzip members / table segments)."""
     lib = load_library()
@@ -1008,10 +985,7 @@ def align_job_native(*, cdna_index, genome_index, rrna_index,
         i64p(stats))
     if rc < 0:
         return None
-    return (
-        (int(stats[0]), int(stats[1]), int(stats[2])),
-        set(np.nonzero(concordant[:n_frags])[0].tolist()),
-        set(np.nonzero(blacklist[:n_frags])[0].tolist()))
+    return int(stats[0]), int(stats[1]), int(stats[2])
 
 
 def calccov_native(sam_path, ref_names, marker_refs, marker_positions,
@@ -1175,31 +1149,6 @@ def cov_merge_bin_kind(paths, kind, seed=11):
     return float(out[0]), float(out[1])
 
 
-def cov_merge_files(paths, seed=11):
-    """Covariance merge over per-rank sample-part files IN RANK ORDER
-    (dt_cov_merge_multi): the concatenated sample sequence equals a
-    single scan of the concatenated pair table, so the drand48 stream
-    and accumulation order — hence the merged (mean, cov) bits — match
-    the single-process fused path exactly.  Returns (mean, cov), None
-    when native is unavailable/IO fails, or raises ValueError on the
-    count<=100 contract."""
-    lib = load_library()
-    if lib is None:
-        return None
-    joined = ";".join(str(p) for p in paths)
-    out = np.zeros(2, dtype=np.float64)
-    fn = lib.dt_cov_merge_multi
-    fn.restype = ctypes.c_long
-    rc = fn(ctypes.c_char_p(joined.encode()), ctypes.c_long(seed),
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
-    if rc == -2:
-        raise ValueError("not enough concordant read samples; set "
-                         "multi_exon_transcripts_stats = yes")
-    if rc < 0:
-        return None
-    return float(out[0]), float(out[1])
-
-
 def cov_merge_file(path, seed=11):
     """Native covariance-sample merge (bit-exact twin of
     stats.pvalues.cov_samples_merge over the file's rows).  Returns
@@ -1287,27 +1236,6 @@ def read_stats_tbl(tbl_path):
         lengths.update(part[3])
     from ..stats.readstats import stats_from_sums
     return stats_from_sums(n, s, ss, sorted(lengths))
-
-
-def globalize_ids(src, dst, offset, qname_style):
-    """Native shard-merge id globalization (defuse_run.pl:387-400
-    merge semantics; byte-identical to the Python loop in
-    parallel.shard.merge_frontend_shards).  qname_style: "frag"/"sam"
-    (bare leading id) or "frag/end".  Appends to dst (one gzip member
-    when dst ends in .gz).  Returns the line count or None when the
-    native library is unavailable / IO or parse fails."""
-    lib = load_library()
-    if lib is None:
-        return None
-    style = 1 if qname_style == "frag/end" else 0
-    fn = lib.dt_globalize_ids
-    fn.restype = ctypes.c_long
-    rc = fn(ctypes.c_char_p(str(src).encode()),
-            ctypes.c_char_p(str(dst).encode()),
-            ctypes.c_long(int(offset)), ctypes.c_int(style))
-    if rc < 0:
-        return None
-    return int(rc)
 
 
 def ingest_fastq(fastq1, fastq2, outdir, rename=None):

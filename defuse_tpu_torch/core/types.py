@@ -77,17 +77,6 @@ class NameIndex:
         return len(self._names)
 
 
-def strand_remap_start(start, end, strand):
-    """Map region into strand space (``tools/MatePairEM.cpp:75-83``).
-
-    On the minus strand a region [s, e] becomes [-e, -s]; this makes "end"
-    always the breakpoint-proximal coordinate.  Vectorized.
-    """
-    rs = np.where(strand == PLUS_STRAND, start, -end)
-    re = np.where(strand == PLUS_STRAND, end, -start)
-    return rs, re
-
-
 _COMP = bytes.maketrans(b"ACGTacgt", b"TGCAtgca")
 
 

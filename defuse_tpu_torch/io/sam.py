@@ -130,18 +130,3 @@ def load_alignments(records, fragment_ids_are_ints: bool = True):
         end=np.asarray(end, dtype=np.int32),
         ref_names=ref_index.names,
     )
-
-
-def write_compact(table: AlignmentTable, path: str) -> None:
-    """Write the compact alignment format consumed by the clusterer,
-    matching ``divide_sam_chr_pairs.pl``: field 1 is the 0-based SAM read
-    end."""
-    with open(path, "w") as out:
-        for i in range(len(table)):
-            out.write("{}\t{}\t{}\t{}\t{}\t{}\n".format(
-                table.fragment[i],
-                int(table.read_end[i]),
-                table.ref_names[table.ref[i]],
-                "-" if table.strand[i] else "+",
-                table.start[i],
-                table.end[i]))

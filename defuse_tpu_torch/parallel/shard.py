@@ -137,128 +137,6 @@ def merge_cluster_parts(part_paths, sidecar_paths, out_path):
     os.replace(tmp, out_path)
 
 
-def divide_spanning_by_chr_pair(rows, chrom_of):
-    """Partition spanning compact rows by (sorted) chromosome pair
-    (``divide_sam_chr_pairs.pl``): per fragment, the cartesian product of
-    end-1 and end-2 chromosomes; rows fan out to each matching pair."""
-    partitions: dict[tuple[str, str], list[str]] = {}
-    current: list = []
-    current_frag = None
-
-    def flush(rows_of_frag):
-        by_end: dict[int, dict[str, list[str]]] = {0: {}, 1: {}}
-        for line in rows_of_frag:
-            f = line.rstrip("\n").split("\t")
-            chrom = chrom_of(f[2])
-            by_end[int(f[1])].setdefault(chrom, []).append(line)
-        if not by_end[0] or not by_end[1]:
-            return
-        for c1 in by_end[0]:
-            for c2 in by_end[1]:
-                key = tuple(sorted((c1, c2)))
-                partitions.setdefault(key, []).extend(by_end[0][c1])
-                partitions.setdefault(key, []).extend(by_end[1][c2])
-
-    for line in rows:
-        frag = line.split("\t", 1)[0]
-        if current_frag is not None and frag != current_frag:
-            flush(current)
-            current = []
-        current_frag = frag
-        current.append(line)
-    if current:
-        flush(current)
-    return partitions
-
-
-def merge_frontend_shards(shard_results, shard_offsets, outdir,
-                          ids_global=False):
-    """Merge per-shard frontend artifacts into global-id files
-    (``defuse_run.pl:387-400`` merge semantics; byte-identical to the
-    unsharded run — pinned by ``tests/test_pipeline_sharded.py`` /
-    ``test_frontend_sharding``).
-
-    shard_results: list of align_job result dicts; shard_offsets: global
-    fragment-id base per shard.  ``ids_global=True`` marks shards that
-    already wrote global fragment ids (align_job ``frag_base``): the
-    text/gz artifacts are then raw-byte appended with no id rewrite
-    (concatenated gzip members are a valid stream), turning the merge
-    into pure sequential IO.  Returns a merged result dict.
-    """
-    from ..stats.readstats import merge_read_stats
-
-    out = pathlib.Path(outdir)
-    out.mkdir(parents=True, exist_ok=True)
-    merged = {"spanning": out / "spanning.compact",
-              "improper": out / "improper.sam",
-              "concordant_sam": out / "cdna.pair.sam.gz"}
-    for path in merged.values():
-        if path.exists():
-            path.unlink()
-
-    def globalize(src, dst, offset, qname_style):
-        # each shard appends one gzip member to a .gz destination —
-        # concatenated members are a valid stream, so shard merge stays
-        # append-only (reads are magic-sniffed, never extension-trusted)
-        import gzip
-
-        from ..cluster import native
-        from ..io.sam import open_text
-        if ids_global:
-            import shutil
-            with open(src, "rb") as fin, open(dst, "ab") as fout:
-                shutil.copyfileobj(fin, fout, 1 << 22)
-            return
-        if native.globalize_ids(src, dst, offset, qname_style) is not None:
-            return
-        if str(dst).endswith(".gz"):
-            fout_ctx = gzip.open(dst, "at", compresslevel=1)
-        else:
-            fout_ctx = open(dst, "a")
-        with open_text(src) as fin, fout_ctx as fout:
-            for line in fin:
-                f = line.split("\t")
-                if qname_style == "frag/end":
-                    frag, end = f[0].split("/")
-                    f[0] = f"{int(frag) + offset}/{end}"
-                else:
-                    f[0] = str(int(f[0]) + offset)
-                fout.write("\t".join(f))
-
-    concordant: set[int] = set()
-    blacklist: set[int] = set()
-    have_sam = all(r.get("concordant_sam") for r in shard_results)
-    for res, offset in zip(shard_results, shard_offsets):
-        globalize(res["spanning"], merged["spanning"], offset, "frag")
-        globalize(res["improper"], merged["improper"], offset,
-                  "frag/end")
-        if have_sam:  # lazy checkpoint: regenerable from the table
-            globalize(res["concordant_sam"], merged["concordant_sam"],
-                      offset, "sam")
-        concordant |= {f + offset for f in res["concordant_fragments"]}
-        blacklist |= {f + offset for f in res["blacklist"]}
-
-    tbl_parts = [r.get("pair_table") for r in shard_results]
-    merged_tbl = None
-    if all(p and pathlib.Path(p).exists() for p in tbl_parts):
-        merged_tbl = out / "cdna.pair.tbl"
-        merge_pair_tables(tbl_parts,
-                          [0] * len(tbl_parts) if ids_global
-                          else shard_offsets, merged_tbl)
-
-    stats = merge_read_stats([r["stats"] for r in shard_results])
-    return {
-        "spanning": str(merged["spanning"]),
-        "improper": str(merged["improper"]),
-        "concordant_sam": str(merged["concordant_sam"]) if have_sam
-        else None,
-        "pair_table": str(merged_tbl) if merged_tbl else None,
-        "stats": stats,
-        "concordant_fragments": concordant,
-        "blacklist": blacklist,
-    }
-
-
 # v2 packs the end-1 strand into the seq high bit; v1 (pre-bit) tables
 # still load, but strand-dependent consumers must check
 # pair_table_has_strand first

@@ -24,12 +24,3 @@ def arbitrate(splitr_span_pval: dict[int, float],
         else:
             out[cid] = "splitr"
     return out
-
-
-def merge_predictions(break_predict, splitr, denovo):
-    """Pick per-cluster rows from the winning source; each of splitr /
-    denovo maps cluster_id -> row payload."""
-    out = {}
-    for cid, source in break_predict.items():
-        out[cid] = (splitr if source == "splitr" else denovo).get(cid)
-    return out

@@ -115,19 +115,6 @@ def merge_read_stats(stats: list[ReadStats]) -> ReadStats:
     return ReadStats(n, mean, var ** 0.5, rl[0], rl[-1], tuple(rl))
 
 
-def expression_counts(lines) -> dict[str, float]:
-    """Per-gene concordant pair counts
-    (``calculate_expression_simple.pl``): 0.5 per aligned row."""
-    counts: dict[str, float] = {}
-    for line in lines:
-        if line.startswith("@"):
-            continue
-        ref = line.split("\t", 3)[2]
-        gene = ref.split("|", 1)[0]
-        counts[gene] = counts.get(gene, 0.0) + 0.5
-    return counts
-
-
 def merge_expression(count_maps) -> dict[str, float]:
     out: dict[str, float] = {}
     for m in count_maps:

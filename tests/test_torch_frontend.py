@@ -16,7 +16,7 @@ from defuse_tpu.io.sam import read_decompressed
 from defuse_tpu_torch.align import frontend as port
 from defuse_tpu_torch.ops import verify_batch
 
-from synthdata import make_dataset, write_dataset
+from synthdata import make_dataset, write_dataset, write_gtf
 from torch_cases import frontend_config
 
 ARTIFACTS = ("spanning", "improper", "concordant_sam", "pair_table")
@@ -95,6 +95,43 @@ def test_port_frontend_needs_cuda_when_asked(dataset):
     tmp, config, fq, _want = dataset
     with pytest.raises(RuntimeError, match="is_available"):
         port.align_reads(config, str(tmp / "no_cuda"), *fq, device="cuda")
+
+
+def test_align_job_returns_its_artifacts_and_stats(tmp_path, monkeypatch):
+    """The port's ``align_job`` returns the paths of its four artifacts and
+    the read stats, and no fragment sets, on the native path and on the
+    Python oracle path (``force_python=True``)."""
+    if not port.native.available():
+        pytest.skip("native library not built")
+    from defuse_tpu_torch.align.seedindex import SeedIndex
+    from defuse_tpu_torch.annotate.gene_models import GeneModels
+    ds = make_dataset(seed=47, n_fusion_frags=30, n_background_frags=30)
+    paths = write_dataset(ds, tmp_path)
+    gtf = tmp_path / "genes.gtf"
+    write_gtf(ds, gtf)
+    reads1, reads2, _ = port.index_paired_fastq(
+        str(paths["fastq1"]), str(paths["fastq2"]), str(tmp_path / "reads"))
+    cdna = {f"{g.name}|{g.transcript}": g.cdna(ds.genome) + "A" * 50
+            for g in ds.genes}
+    inputs = dict(reads1=reads1, reads2=reads2,
+                  cdna_index=SeedIndex(cdna),
+                  genome_index=SeedIndex(ds.genome), rrna_index=None,
+                  gene_models=GeneModels(str(gtf)))
+    native_runs = []
+    align_native = port._align_job_native
+
+    def spy(**kw):
+        native_runs.append(align_native(**kw))
+        return native_runs[-1]
+
+    monkeypatch.setattr(port, "_align_job_native", spy)
+    keys = {"spanning", "improper", "concordant_sam", "pair_table", "stats"}
+    for force_python in (False, True):
+        res = port.align_job(outdir=str(tmp_path / f"python_{force_python}"),
+                             force_python=force_python, **inputs)
+        assert set(res) == keys, force_python
+        assert res["stats"].frag_count > 0, force_python
+    assert len(native_runs) == 1 and native_runs[0] is not None
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
 """The port's own host layer (``defuse_tpu_torch``) against the modules of
 ``defuse_tpu`` it was copied from: the source is the reference's after the
-package rename, except for the modules of ``DIVERGED``, each with its
-reason; and the port's dataset maker writes the files of ``bench.py``'s."""
+package rename, less the definitions of ``REMOVED`` (which no path of the
+port runs), except for the modules of ``DIVERGED``, each with its reason;
+and the port's dataset maker writes the files of ``bench.py``'s."""
 
 import ast
 import difflib
@@ -28,9 +29,9 @@ COPIED = (
     "pipeline/runner.py", "filters/estislands.py",
     "annotate/mapping_stats.py", "annotate/extra.py",
     "annotate/features.py", "annotate/collate.py", "annotate/adaboost.py",
-    "align/breakseq.py", "align/matealign.py", "align/denovo.py",
+    "align/breakseq.py", "align/denovo.py",
     "pipeline/denovo_arbitration.py", "pipeline/denovo_stage.py",
-    "cluster/hierarchical.py", "cluster/discordant.py", "pipeline/run.py",
+    "cluster/discordant.py", "pipeline/run.py",
     "io/bam.py", "cli/get_reads.py", "cli/exporters.py",
     "cli/expression_plot.py", "pipeline/create_ref.py",
     "pipeline/acquire.py", "pipeline/cohort.py", "cli/main.py",
@@ -38,6 +39,23 @@ COPIED = (
     "parallel/launch.py", "ops/verify_batch.py", "pipeline/discover.py",
     "core/devices.py")
 
+# module: the reference's top-level definitions the port does not carry,
+# since no verb, stage, test, smoke phase or benchmark of the port reaches
+# them; the frontend returns no fragment sets, so nothing merges shards
+REMOVED = {
+    "align/batch_realign.py": ("realign_candidates_screened",),
+    "parallel/shard.py": ("divide_spanning_by_chr_pair",
+                          "merge_frontend_shards"),
+    "cluster/native.py": ("em_cluster", "cov_merge_files", "globalize_ids"),
+    "io/sam.py": ("write_compact",),
+    "stats/readstats.py": ("expression_counts",),
+    "core/types.py": ("strand_remap_start",),
+    "cluster/discordant.py": ("check_concordant", "BinPairResult"),
+    "pipeline/denovo_arbitration.py": ("merge_predictions",),
+}
+
+# modules of the reference the port does not carry, for the same reason
+REMOVED_MODULES = ("align/matealign.py", "cluster/hierarchical.py")
 
 
 def definitions_but(module: str, *names: str) -> tuple[str, ...]:
@@ -61,10 +79,13 @@ DIVERGED = {
         "the reference imports its JAX verifier, and records the calls of "
         "each route in VERIFY_CALLS; the frontend, its ingest, index loads "
         "and align_job shards are spans of the library's Tracer, in place "
-        "of the reference's DEFUSE_ALIGNJOB_TIMING prints; the rest is the "
-        "reference's text",
+        "of the reference's DEFUSE_ALIGNJOB_TIMING prints; the port's "
+        "frontend returns no fragment sets (align_job and _align_job_native "
+        "return the artifacts and the read stats, not "
+        "concordant_fragments and blacklist, which nothing reads); the rest "
+        "is the reference's text",
         ("SingleAlignment", "index_paired_fastq", "_align_all",
-         "_align_all_native", "align_job")),
+         "_align_all_native")),
     "align/batch_realign.py": (
         "the screen goes to ops/split_dp_cuda.screen_candidates, "
         "realign_candidates and _device_tie_columns take the device their "
@@ -78,9 +99,11 @@ DIVERGED = {
          "realign_candidates_native", "_columns", "_pad_len")),
     "cluster/native.py": (
         "load_library's first load of the library is the process span "
-        "process.native_load of utils.profiling; the rest is the "
-        "reference's text",
-        definitions_but("cluster/native.py", "load_library")),
+        "process.native_load of utils.profiling; align_job_native returns "
+        "the read stats alone, not the fragment sets of the native masks; "
+        "the rest is the reference's text",
+        definitions_but("cluster/native.py", "load_library",
+                        "align_job_native", *REMOVED["cluster/native.py"])),
     "cluster/discordant.py": (
         "cluster_alignments takes the device its batched EM runs on "
         "(em_mode='device'), checks it before anything else and hands it "
@@ -194,20 +217,46 @@ def renamed(text: str) -> str:
     return re.sub(r"\bdefuse_tpu\b", "defuse_tpu_torch", text)
 
 
-def definition(text: str, name: str) -> str:
-    """Source of the top-level ``def``/``class`` ``name``, decorators
-    included, or of the top-level assignment to ``name``."""
+def top_level(text: str, name: str):
+    """The top-level ``def``/``class`` or assignment of ``name`` in
+    ``text``, and its first line, decorators included."""
     for node in ast.parse(text).body:
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
-                and node.name == name:
-            start = min([node.lineno] +
-                        [d.lineno for d in node.decorator_list])
-            return "\n".join(text.splitlines()[start - 1:node.end_lineno])
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            if node.name == name:
+                return node, min([node.lineno] +
+                                 [d.lineno for d in node.decorator_list])
+            continue
         targets = node.targets if isinstance(node, ast.Assign) else \
             [node.target] if isinstance(node, ast.AnnAssign) else []
         if any(isinstance(t, ast.Name) and t.id == name for t in targets):
-            return ast.get_source_segment(text, node)
+            return node, node.lineno
     raise KeyError(name)
+
+
+def definition(text: str, name: str) -> str:
+    """Source of the top-level ``def``/``class`` ``name``, decorators
+    included, or of the top-level assignment to ``name``."""
+    node, start = top_level(text, name)
+    if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+        return "\n".join(text.splitlines()[start - 1:node.end_lineno])
+    return ast.get_source_segment(text, node)
+
+
+def cut(text: str, names) -> str:
+    """``text`` without the top-level definitions ``names``: each as
+    ``definition`` finds it, with the comment lines directly above it and
+    the blank lines above those."""
+    lines = text.splitlines(True)
+    drop = set()
+    for name in names:
+        node, start = top_level(text, name)
+        start -= 1
+        while start and lines[start - 1].startswith("#"):
+            start -= 1
+        while start and not lines[start - 1].strip():
+            start -= 1
+        drop.update(range(start, node.end_lineno))
+    return "".join(line for i, line in enumerate(lines) if i not in drop)
 
 
 @pytest.mark.parametrize("module", COPIED)
@@ -215,6 +264,7 @@ def test_host_module_is_the_reference_source(module):
     ref = renamed((REFERENCE / module).read_text())
     port = (PORT / module).read_text()
     if module not in DIVERGED:
+        ref = cut(ref, REMOVED.get(module, ()))
         diff = "".join(difflib.unified_diff(
             ref.splitlines(True), port.splitlines(True), "reference",
             "port", n=0))
@@ -227,8 +277,44 @@ def test_host_module_is_the_reference_source(module):
 
 
 def test_diverged_names_only_copied_modules():
-    assert set(DIVERGED) <= set(COPIED)
-    assert len(COPIED) == len(set(COPIED)) == 57
+    assert set(DIVERGED) <= set(COPIED) and set(REMOVED) <= set(COPIED)
+    assert not set(REMOVED_MODULES) & set(COPIED)
+    assert len(COPIED) == len(set(COPIED)) == 55
+
+
+def readers_of(word: str) -> list[str]:
+    """The files of the port, its tests, ``chip_smoke.py`` and
+    ``fusionbench/`` that name ``word``; this file, which holds the
+    tables, apart."""
+    tests = REPO / "tests"
+    files = [*PORT.rglob("*.py"), *tests.glob("test_torch_*.py"),
+             *tests.glob("torch_*.py"), REPO / "chip_smoke.py",
+             *(REPO / "fusionbench").rglob("*.py")]
+    pattern = re.compile(rf"\b{re.escape(word)}\b")
+    return [str(f.relative_to(REPO)) for f in files
+            if f.resolve() != pathlib.Path(__file__).resolve()
+            and pattern.search(f.read_text())]
+
+
+@pytest.mark.parametrize(
+    "module, name",
+    [(module, name) for module, names in REMOVED.items() for name in names]
+    + [(module, None) for module in REMOVED_MODULES],
+    ids=lambda v: v or "module")
+def test_removed_definition(module, name):
+    """The reference still defines what the port leaves out, the port does
+    not, and nothing of the port, its tests, its smoke run or the
+    benchmark names it."""
+    if name is None:
+        assert (REFERENCE / module).is_file()
+        assert not (PORT / module).exists()
+        word = pathlib.Path(module).stem
+    else:
+        definition((REFERENCE / module).read_text(), name)
+        with pytest.raises(KeyError):
+            definition((PORT / module).read_text(), name)
+        word = name
+    assert not readers_of(word)
 
 
 def test_tie_column_enumeration_names_its_roadmap_item():

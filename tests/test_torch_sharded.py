@@ -316,8 +316,6 @@ def frag_base_global_ids(pkg, tmp, force_python):
 
     base = 1_000_000
     local, shifted = run("local", 0), run("shifted", base)
-    assert local["concordant_fragments"] == shifted["concordant_fragments"]
-    assert local["blacklist"] == shifted["blacklist"]
     artifacts = {}
     for key, style in (("spanning", "frag"), ("improper", "frag/end"),
                        ("concordant_sam", "sam")):
