@@ -846,6 +846,11 @@ def _align_reads(config, output_dir, fastq1, fastq2, use_device, frag_base,
         "fastq2": str(out / "reads" / "reads.2.fastq"),
         "concordant_sam": res["concordant_sam"],
         "pair_table": res.get("pair_table"),
-        # reuse the indices for the breakpoint alignment stage
-        "target_indices": {"genome": genome_index, "cdna": cdna_index},
+        # breakseq reuses the indices built here (the short-read k, or no
+        # saved index); a mapped one it maps again itself, so that its
+        # pages go when this returns and do not sit under discover
+        "target_indices": {
+            name: index for name, index in (("genome", genome_index),
+                                            ("cdna", cdna_index))
+            if not isinstance(index.keys, np.memmap)},
     }

@@ -635,7 +635,8 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
             if f[1] not in ("N", ""):
                 breakseqs[int(f[0])] = f[1]
         targets = dict(target_indices or {})
-        with _tracer.span("breakseq.index_load"):
+        with _tracer.span("breakseq.index_load",
+                          handed=len(targets)) as loads:
             if "genome" not in targets:
                 # mmap-load the persisted index (bowtie-build semantics)
                 # instead of rebuilding the multi-GB genome index per run —
@@ -659,12 +660,15 @@ def _run_pipeline(*, config: Config, output_dir: str, library_name: str,
                     import os as _os
                     if _os.path.exists(path):
                         targets[tname] = SeedIndex.load_or_build(path)
+            loads["mapped"] = len(targets) - loads["handed"]
         # a target at a time, each its own span with the counts of its
-        # pass: the same files as one call over all of them
-        for tname, index in targets.items():
+        # pass: the same files as one call over all of them; each index
+        # is let go after its pass, so none sits under annotation
+        for tname in list(targets):
             with _tracer.span(f"breakseq.align.{tname}") as counts:
                 psl_paths.update(align_breakpoints(
-                    breakseqs, {tname: index}, str(out), counts=counts))
+                    breakseqs, {tname: targets.pop(tname)}, str(out),
+                    counts=counts))
 
     _stage("annotation")
     # --- annotation -----------------------------------------------------

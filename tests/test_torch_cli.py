@@ -7,6 +7,7 @@ tolerance), from the same seeded fastqs; the read-only verbs print the
 same text about the same run."""
 
 import filecmp
+import json
 import pathlib
 import subprocess
 import sys
@@ -129,6 +130,71 @@ def test_cli_run_calls_the_planted_fusion(cli_runs):
     assert any({r[g1], r[g2]} == {"GA", "GB"} for r in rows[1:])
 
 
+@pytest.fixture(scope="module")
+def index_runs(library, cli_runs):
+    """The port's ``run`` of ``cli_runs`` beside two more: one whose
+    frontend hands breakseq the saved genome and cDNA indices, mapped by
+    hand (as the frontend did before it let mapped indices go), and one on
+    the short-read route (``discord_read_trim`` 40: the frontend builds
+    both indices in memory at k 13)."""
+    from defuse_tpu_torch.align import frontend
+    from defuse_tpu_torch.align.seedindex import SeedIndex
+    tmp, _ds, paths, config = library
+    align = frontend.align_reads
+
+    def handing(config, *args, **kw):
+        out = align(config, *args, **kw)
+        assert out["target_indices"] == {}
+        prefix = config.get_value("dataset_prefix") + ".genome.seedidx"
+        out["target_indices"] = {
+            "genome": SeedIndex.load_or_build(
+                config.get_value("genome_fasta"), prefix=prefix),
+            "cdna": SeedIndex.load_or_build(config.get_value("cdna_fasta"))}
+        return out
+
+    short = tmp / "refs" / "config.short.txt"
+    short.write_text(config.read_text() + "discord_read_trim = 40\n")
+    common = ["-d", str(tmp / "dataset_port"), "-1", str(paths["fastq1"]),
+              "-2", str(paths["fastq2"]), "-n", "cli", "--device", "cpu"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(frontend, "align_reads", handing)
+        assert port_cli.main(["run", "-c", str(config), "-o",
+                              str(tmp / "run_handed")] + common) == 0
+    assert port_cli.main(["run", "-c", str(short), "-o",
+                          str(tmp / "run_short")] + common) == 0
+    return {"saved": cli_runs[1], "handed": tmp / "run_handed",
+            "short_read": tmp / "run_short"}
+
+
+@pytest.mark.parametrize("name", [
+    "results.tsv", "splitreads.seq", "splitreads.break",
+    "splitreads.alignments", "breakpoints.genome.psl",
+    "breakpoints.genome.nointron.psl", "breakpoints.cdna.psl",
+    "breakpoints.exons.psl", "breakpoints.cds.psl"])
+def test_cli_run_is_the_same_with_the_indices_handed_in(index_runs, name):
+    """Breakseq mapping the saved indices itself writes what it wrote when
+    the frontend handed them on, byte for byte."""
+    got, want = index_runs["saved"] / name, index_runs["handed"] / name
+    assert got.read_bytes() == want.read_bytes()
+    assert got.stat().st_size > 0
+
+
+@pytest.mark.parametrize("route,handed", [("saved", 0), ("handed", 2),
+                                          ("short_read", 2)])
+def test_breakseq_counts_the_indices_it_maps_and_is_handed(index_runs,
+                                                           route, handed):
+    """``breakseq.index_load`` counts the targets the frontend handed on
+    (``handed``) and those the stage loads itself (``mapped``): with the
+    dataset's saved indices every target is the stage's own."""
+    spans = json.loads((index_runs[route] / "metrics.json").read_text()
+                       )["spans"]
+    (load,) = [s for s in spans if s["name"] == "breakseq.index_load"]
+    passes = [s for s in spans if s["name"].startswith("breakseq.align.")]
+    assert len(passes) == 4
+    assert load["counts"]["handed"] == handed
+    assert load["counts"]["mapped"] == len(passes) - handed
+
+
 def read_only_verbs(tmp, run_dir, dataset, config):
     cid = (run_dir / "results.tsv").read_text().splitlines()[1].split("\t")[0]
     return {
@@ -241,6 +307,9 @@ def test_cohort_libraries_ran_the_port_on_the_cpu(cohorts):
         log = (got / lib / "cohort.log").read_text()
         assert "Traceback" not in log
         assert (got / lib / "metrics.discover.json").exists()
+        spans = json.loads((got / lib / "metrics.json").read_text())["spans"]
+        (load,) = [s for s in spans if s["name"] == "breakseq.index_load"]
+        assert (load["counts"]["handed"], load["counts"]["mapped"]) == (0, 4)
 
 
 def test_main_module_is_the_cli():

@@ -76,7 +76,54 @@ def test_port_artifacts_match_jax_package(dataset, counted_verifier,
         # auto keeps the native fused seed+verify while the library is
         # present; off never verifies on the device
         assert counted_verifier["calls"] == 0
-    assert set(res["target_indices"]) == {"genome", "cdna"}
+    # the indices are saved beside their fastas: none is handed on
+    assert res["target_indices"] == {}
+
+
+def mapped_indices(under):
+    """The ``*.seedidx.*.npy`` files under ``under`` that this process
+    maps."""
+    maps = pathlib.Path("/proc/self/maps")
+    if not maps.exists():
+        pytest.skip("no /proc/self/maps here")
+    return {line.split()[-1] for line in maps.read_text().splitlines()
+            if str(under) in line and ".seedidx." in line
+            and line.endswith(".npy")}
+
+
+@pytest.mark.parametrize("route", ["saved", "built", "short_read"])
+def test_align_reads_hands_on_only_indices_built_in_memory(
+        dataset, tmp_path, route):
+    """``align_reads`` hands breakseq the genome and cDNA indices only where
+    it built them in memory (no saved index, or the short-read k, whose
+    seed length the saved one lacks); a saved index it maps is let go when
+    it returns, so no page of it stays mapped under the stages after it."""
+    from defuse_tpu_torch.align.seedindex import SeedIndex
+    _tmp, _config, fq, _want = dataset
+    ds = make_dataset(seed=29, n_fusion_frags=80, n_background_frags=80)
+    refs = tmp_path / "refs"
+    config = frontend_config(ds, refs, **(
+        {"discord_read_trim": 40} if route == "short_read" else {}))
+    fastas = [config.get_value(key) for key in ("genome_fasta",
+                                                "cdna_fasta")]
+    if route == "saved":
+        for fasta in fastas:
+            SeedIndex.load_or_build(fasta)
+        held = SeedIndex.load(fastas[0] + ".seedidx")
+        assert len(held.keys) and len(mapped_indices(refs)) >= 2
+        del held
+    assert mapped_indices(refs) == set()
+    res = port.align_reads(config, str(tmp_path / "out"), *fq, device="cpu")
+    assert len(res["improper"]) > 0
+    handed = res["target_indices"]
+    if route == "saved":
+        assert handed == {}
+    else:
+        assert set(handed) == {"genome", "cdna"}
+        for index in handed.values():
+            assert not isinstance(index.keys, np.memmap)
+            assert index.seed_len == (13 if route == "short_read" else 16)
+    assert mapped_indices(refs) == set()
 
 
 def test_port_without_device_matches(dataset, counted_verifier, monkeypatch):

@@ -82,8 +82,10 @@ DIVERGED = {
         "of the reference's DEFUSE_ALIGNJOB_TIMING prints; the port's "
         "frontend returns no fragment sets (align_job and _align_job_native "
         "return the artifacts and the read stats, not "
-        "concordant_fragments and blacklist, which nothing reads); the rest "
-        "is the reference's text",
+        "concordant_fragments and blacklist, which nothing reads); "
+        "align_reads hands breakseq only the seed indices it built in "
+        "memory, so that a mapped one goes when it returns; the rest is "
+        "the reference's text",
         ("SingleAlignment", "index_paired_fastq", "_align_all",
          "_align_all_native")),
     "align/batch_realign.py": (
@@ -116,8 +118,9 @@ DIVERGED = {
         "it is a library of utils.profiling, whose Tracer's stages are its "
         "stages (spans, each open until the next), the Runner's stages "
         "are spans around its calls, and breakseq loads its indices in one "
-        "span and aligns a target at a time, each in a span of its own "
-        "with the counts of its pass",
+        "span, which counts the indices handed in and those it loads "
+        "itself, and aligns a target at a time, each in a span of its own "
+        "with the counts of its pass, letting each index go after it",
         ("run_pipeline", "_notify_completion", "_read_stats_file",
          "_span_stats", "_span_stats_from_breaks",
          "materialize_cov_samples")),
