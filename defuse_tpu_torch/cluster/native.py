@@ -8,7 +8,9 @@ library is not built.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import pathlib
 import subprocess
@@ -33,12 +35,33 @@ def _default_threads() -> int:
     except (AttributeError, OSError):
         return max(1, os.cpu_count() or 2)
 
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive ``flock`` on a file beside the library, held while a
+    process looks for the library, builds it and loads it: processes that
+    start at once (``defuse cohort -w W``) build it once, and none loads a
+    file that ``native/build.sh`` is still writing.  No lock where that
+    file cannot be made (a read-only tree)."""
+    try:
+        fd = os.open(_LIB_PATH.with_name(_LIB_PATH.name + ".lock"),
+                     os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        yield
+        return
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
 def load_library(build_if_missing: bool = True):
     global _lib
     if _lib is not None:
         return _lib
     from ..utils import profiling
-    with profiling.process_span("process.native_load"):
+    with profiling.process_span("process.native_load"), _build_lock():
         if not _LIB_PATH.exists() and build_if_missing:
             try:
                 subprocess.run(["bash", str(_LIB_PATH.parent / "build.sh")],

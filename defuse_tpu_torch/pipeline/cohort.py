@@ -21,9 +21,13 @@ Design (one process per library, not a cluster-submitter translation):
   parallelism;
 * each library runs in its own subprocess (``python -m defuse_tpu_torch
   run --device <device>``) so one library's failure cannot take down the
-  cohort; within a rank, ``workers`` libraries run concurrently.  The
-  children inherit ``CUDA_VISIBLE_DEVICES``: with ``workers > 1`` they
-  share the card;
+  cohort; within a rank, ``workers`` libraries run concurrently, and a
+  slot that a library frees starts the next at once.  The children
+  inherit ``CUDA_VISIBLE_DEVICES``: with ``workers > 1`` they share the
+  card.  Each child is told, on ``time.perf_counter_ns``, when the call
+  started and when it was spawned, and how many workers share the card
+  (``COHORT_ENV``), so its own ``Tracer`` records its time in the queue
+  and its process start (``utils.profiling.library``);
 * restartability: a library whose ``results.filtered.tsv`` exists is
   skipped (the per-stage mtime skip inside ``pipeline.runner`` covers
   partial reruns of an unfinished library);
@@ -35,6 +39,7 @@ Design (one process per library, not a cluster-submitter translation):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -42,6 +47,13 @@ import pathlib
 import subprocess
 import sys
 import time
+
+# what a library process is told of the call that started it
+COHORT_ENV = ("DEFUSE_COHORT_START_NS", "DEFUSE_COHORT_SPAWN_NS",
+              "DEFUSE_COHORT_WORKERS")
+LIBCUDA = "libcuda.so.1"
+# how often the coordinator looks for a library process that has ended
+REAP_POLL_S = 0.02
 
 
 @dataclasses.dataclass
@@ -108,9 +120,9 @@ def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
     Returns {"summary": path, "fusions": path, "recurrent": path} on
     rank 0, {} on other ranks.
     """
+    call_start = time.perf_counter_ns()
     if use_device:
-        from ..core.devices import require_cuda
-        require_cuda(device)
+        require_card(device)
     libs = read_manifest(manifest)
     rank, nprocs = _rank_nprocs()
     out = pathlib.Path(outdir)
@@ -131,17 +143,20 @@ def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
 
     mine = [(i, lb) for i, lb in enumerate(libs) if i % nprocs == rank]
     rows = []
-    pending: list[tuple[subprocess.Popen, Library, float]] = []
+    pending: list[_Running] = []
 
-    def harvest(proc, lb, t0):
-        res = out / lb.name / "results.filtered.tsv"
-        ok = proc.returncode == 0 and res.exists()
+    def harvest(run: _Running, seconds: float, usage) -> None:
+        res = out / run.lib.name / "results.filtered.tsv"
+        rc = run.proc.returncode
+        ok = rc == 0 and res.exists()
         n = max(0, len(res.read_text().splitlines()) - 1) if ok else 0
-        rows.append((lb.name, "ok" if ok else "failed", n,
-                     round(time.time() - t0, 1), str(res if ok else "")))
-        if not ok:
-            sys.stderr.write(f"cohort: library {lb.name} failed "
-                             f"(rc={proc.returncode})\n")
+        rows.append((run.lib.name, "ok" if ok else "failed", n,
+                     round(seconds, 1), str(res if ok else "")))
+        sys.stderr.write(
+            f"cohort: library {run.lib.name} {'ok' if ok else 'failed'} "
+            f"(rc={rc}) in {seconds:.3f} s, "
+            f"{usage.ru_utime + usage.ru_stime:.3f} CPU s, ru_maxrss "
+            f"{usage.ru_maxrss * 1024} bytes\n")
 
     for _i, lb in mine:
         libdir = out / lb.name
@@ -150,27 +165,20 @@ def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
             n = max(0, len(res.read_text().splitlines()) - 1)
             rows.append((lb.name, "cached", n, 0.0, str(res)))
             continue
-        cmd = [sys.executable, "-m", "defuse_tpu_torch", "run",
-               "-c", config, "-d", dataset, "-o", str(libdir),
-               "-n", lb.name]
-        if lb.bam:
-            cmd += ["--bam", lb.bam]
-        else:
-            cmd += ["-1", lb.fastq1, "-2", lb.fastq2]
-        cmd += ["--device", str(device)]
-        if not use_device:
-            cmd += ["--no-device"]
         while len(pending) >= max(1, workers):
-            proc, plb, t0 = pending.pop(0)
-            proc.wait()
-            harvest(proc, plb, t0)
+            _reap_first(pending, harvest)
         libdir.mkdir(parents=True, exist_ok=True)
-        log = open(libdir / "cohort.log", "w")
-        pending.append((subprocess.Popen(cmd, stdout=log, stderr=log),
-                        lb, time.time()))
-    for proc, plb, t0 in pending:
-        proc.wait()
-        harvest(proc, plb, t0)
+        spawn = time.perf_counter_ns()
+        env = os.environ | dict(zip(COHORT_ENV, map(str, (
+            call_start, spawn, max(1, workers)))))
+        with open(libdir / "cohort.log", "w") as log:
+            proc = subprocess.Popen(
+                library_command(config, dataset, libdir, lb, device,
+                                use_device),
+                stdout=log, stderr=log, env=env)
+        pending.append(_Running(proc, lb, spawn))
+    while pending:
+        _reap_first(pending, harvest)
 
     shard = out / f"cohort_summary.rank{rank}.tsv"
     tmp = shard.with_suffix(".tmp")
@@ -184,6 +192,74 @@ def run_cohort(config: str, dataset: str, manifest: str, outdir: str,
         return {}
     return merge_cohort(outdir, nprocs, libs, timeout_s=merge_timeout_s,
                         run_id=run_id)
+
+
+def require_card(device: str = "cuda") -> None:
+    """Raise before any library starts where ``device`` names CUDA and
+    ``libcuda.so.1`` finds no card, without ``torch``, which only the
+    library processes need: its ``cuInit`` and ``cuDeviceGetCount``, which
+    honour ``CUDA_VISIBLE_DEVICES``."""
+    if device.split(":")[0] != "cuda":
+        return
+    count = ctypes.c_int(0)
+    try:
+        cuda = ctypes.CDLL(LIBCUDA)
+    except OSError:
+        cuda = None
+    if cuda is not None:
+        cuda.cuInit.argtypes = [ctypes.c_uint]
+        cuda.cuDeviceGetCount.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        if cuda.cuInit(0) or cuda.cuDeviceGetCount(ctypes.byref(count)):
+            count.value = 0
+    if count.value < 1:
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run the plain PyTorch version "
+            "explicitly")
+
+
+def library_command(config: str, dataset: str, libdir: pathlib.Path,
+                    lb: Library, device: str, use_device: bool) -> list:
+    """``python -m defuse_tpu_torch run`` of one library into ``libdir``."""
+    cmd = [sys.executable, "-m", "defuse_tpu_torch", "run",
+           "-c", config, "-d", dataset, "-o", str(libdir), "-n", lb.name]
+    if lb.bam:
+        cmd += ["--bam", lb.bam]
+    else:
+        cmd += ["-1", lb.fastq1, "-2", lb.fastq2]
+    cmd += ["--device", str(device)]
+    if not use_device:
+        cmd += ["--no-device"]
+    return cmd
+
+
+@dataclasses.dataclass
+class _Running:
+    proc: subprocess.Popen
+    lib: Library
+    spawn_ns: int
+
+
+def _reap_first(pending: list[_Running], harvest) -> None:
+    """Wait until one of ``pending``'s library processes exits, whichever
+    it is: every ``REAP_POLL_S`` seconds, ``os.wait4`` on each without
+    blocking (which reaps only these processes, and gives each its own
+    resource usage); drop each that has exited from ``pending`` and
+    ``harvest`` it with its seconds from spawn to exit."""
+    while True:
+        done = []
+        for run in pending:
+            pid, status, usage = os.wait4(run.proc.pid, os.WNOHANG)
+            if pid:
+                done.append((run, status, usage))
+        if done:
+            break
+        time.sleep(REAP_POLL_S)
+    ended = time.perf_counter_ns()
+    for run, status, usage in done:
+        run.proc.returncode = os.waitstatus_to_exitcode(status)
+        pending.remove(run)
+        harvest(run, (ended - run.spawn_ns) / 1e9, usage)
 
 
 def merge_cohort(outdir: str, nprocs: int, libs: list[Library],

@@ -8,7 +8,9 @@ metrics artifact; ``library`` opens the Tracer of one ``run`` (with
 layer below reaches through ``current``; ``RUN_SPANS`` and ``RUN_MEMORY``
 keep each finished run's span seconds and memory record for readers in the
 same process; ``process_span`` records the process's start
-(``PROCESS_SPANS``); ``cuda_time_ms`` times a kernel by CUDA events.
+(``PROCESS_SPANS``), and a library process that ``defuse cohort`` started
+also its time in the cohort's queue and its start (``cohort.wait``,
+``cohort.spawn``); ``cuda_time_ms`` times a kernel by CUDA events.
 """
 
 from __future__ import annotations
@@ -128,6 +130,13 @@ class Tracer:
     def count(self, name: str, value: float) -> None:
         self.counters[name] = self.counters.get(name, 0) + value
 
+    def record(self, name: str, start: int, end: int) -> None:
+        """A closed span ``name`` from ``start`` to ``end`` on the spans'
+        clock at the top of the span tree, for a stretch that passed before
+        this Tracer opened; it carries no mark."""
+        root = self._root
+        root.spans.append([next(root._ids), name, None, start, end, {}])
+
     def _enter(self, name: str, counts: dict,
                edge: tuple[int, int] | None = None) -> int:
         """Open span ``name`` at ``edge`` (its clock and mark), else now."""
@@ -204,7 +213,8 @@ class Tracer:
         spans, in bytes, summed over the run."""
         out: dict[str, int] = {}
         for rec in self.spans:
-            out[rec[1]] = out.get(rec[1], 0) + rec[5].get("rss_hwm_rise", 0)
+            if "rss_hwm_rise" in rec[5]:
+                out[rec[1]] = out.get(rec[1], 0) + rec[5]["rss_hwm_rise"]
         return out
 
     def flush(self) -> str | None:
@@ -255,6 +265,7 @@ def library(outdir: str):
         yield _LIBRARIES[-1]
         return
     tracer = Tracer(outdir)
+    _cohort_start(tracer)
     start = {"rss_hwm": rss_hwm()}
     trace_dir = os.environ.get("DEFUSE_TORCH_PROFILE")
     profiled = _profiled(pathlib.Path(trace_dir) / tracer.run_id) \
@@ -275,6 +286,27 @@ def library(outdir: str):
     tracer.flush()
     RUN_SPANS.append(tracer.span_seconds())
     RUN_MEMORY.append(tracer.memory)
+
+
+def _cohort_start(tracer: Tracer) -> None:
+    """Where ``defuse cohort`` started this process (its environment holds
+    ``pipeline.cohort.COHORT_ENV``, taken out here, so once a process): the
+    spans ``cohort.wait``, from the call's start to this process's spawn
+    (the library's time in the cohort's queue), and ``cohort.spawn``, from
+    the spawn to the opening of ``tracer`` (the interpreter's start and the
+    imports), and the counters ``cohort_workers`` (the library processes
+    the cohort runs at once), ``cpus`` (the CPU affinity set's size, the
+    native stages' threads) and ``torch_threads``."""
+    from ..pipeline.cohort import COHORT_ENV
+    if not all(k in os.environ for k in COHORT_ENV):
+        return
+    start, spawn, workers = (int(os.environ.pop(k)) for k in COHORT_ENV)
+    from ..cluster.native import _default_threads
+    tracer.record("cohort.wait", start, spawn)
+    tracer.record("cohort.spawn", spawn, tracer._t0)
+    tracer.count("cohort_workers", workers)
+    tracer.count("cpus", _default_threads())
+    tracer.count("torch_threads", torch.get_num_threads())
 
 
 @contextlib.contextmanager

@@ -7,7 +7,9 @@ tolerance), from the same seeded fastqs; the read-only verbs print the
 same text about the same run."""
 
 import filecmp
+import importlib.util
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -310,6 +312,58 @@ def test_cohort_libraries_ran_the_port_on_the_cpu(cohorts):
         spans = json.loads((got / lib / "metrics.json").read_text())["spans"]
         (load,) = [s for s in spans if s["name"] == "breakseq.index_load"]
         assert (load["counts"]["handed"], load["counts"]["mapped"]) == (0, 4)
+
+
+def cohort_reference():
+    """``fusionbench/cohort_reference.py``, the benchmark's plain reference
+    of the cohort's tables."""
+    spec = importlib.util.spec_from_file_location(
+        "cohort_reference", REPO / "fusionbench" / "cohort_reference.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["cohort_fusions.tsv",
+                                  "cohort_recurrent.tsv"])
+def test_cohort_tables_equal_the_plain_reference(cohorts, name):
+    """The two libraries share their fusions, so a gene pair recurs in
+    both."""
+    _want, got = cohorts
+    ref = cohort_reference()
+    tables = ref.tables(got, ref.manifest_names(got.parent / "cohort.tsv"))
+    assert (got / name).read_bytes() == tables[name].encode()
+    recurrent = [r.split("\t") for r in
+                 tables["cohort_recurrent.tsv"].splitlines()[1:]]
+    assert recurrent[0][2:] == ["2", "libA,libB"]
+
+
+def test_cohort_library_records_its_queue_and_start(cohorts, cli_runs):
+    """A cohort library's ``metrics.json`` holds its time in the queue and
+    its process start, before its run's spans, and the counters of what
+    it shares the host with; a plain ``run``'s holds none of them."""
+    _want, got = cohorts
+    for lib in ("libA", "libB"):
+        metrics = json.loads((got / lib / "metrics.json").read_text())
+        spans = metrics["spans"]
+        wait, spawn = spans[:2]
+        assert [wait["name"], spawn["name"]] == ["cohort.wait",
+                                                 "cohort.spawn"]
+        assert wait["parent"] is None and spawn["parent"] is None
+        assert wait["start_ns"] <= wait["end_ns"] == spawn["start_ns"] < \
+            spawn["end_ns"] <= spans[2]["start_ns"]
+        assert wait["counts"] == spawn["counts"] == {}
+        assert "cohort.spawn" not in metrics["memory"]["rise"]
+        counters = metrics["counters"]
+        assert counters["cohort_workers"] == 2
+        assert counters["cpus"] == len(os.sched_getaffinity(0))
+        assert counters["torch_threads"] >= 1
+    _jax, plain = cli_runs
+    metrics = json.loads((plain / "metrics.json").read_text())
+    assert not any(s["name"].startswith("cohort.")
+                   for s in metrics["spans"])
+    assert not {"cohort_workers", "cpus", "torch_threads"} & \
+        set(metrics["counters"])
 
 
 def test_main_module_is_the_cli():

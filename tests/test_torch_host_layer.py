@@ -101,7 +101,10 @@ DIVERGED = {
          "realign_candidates_native", "_columns", "_pad_len")),
     "cluster/native.py": (
         "load_library's first load of the library is the process span "
-        "process.native_load of utils.profiling; align_job_native returns "
+        "process.native_load of utils.profiling, and it looks for, builds "
+        "and loads the library under a flock beside it (_build_lock), so "
+        "that processes that start at once build it once; "
+        "align_job_native returns "
         "the read stats alone, not the fragment sets of the native masks; "
         "the rest is the reference's text",
         definitions_but("cluster/native.py", "load_library",
@@ -137,9 +140,16 @@ DIVERGED = {
          "MAX_READLEN_GATHER")),
     "pipeline/cohort.py": (
         "run_cohort takes device, checks the card before any library "
-        "starts and hands --device to each library's run; _rank_nprocs "
-        "reads torchrun's RANK/WORLD_SIZE ahead of the reference "
-        "launcher's JAX_PROCESS_ID/JAX_NUM_PROCESSES, which it keeps",
+        "starts without torch (require_card: cuInit and cuDeviceGetCount of "
+        "libcuda.so.1 through ctypes) and hands --device to each "
+        "library's run (library_command); a slot that a library frees "
+        "starts the next at once (_reap_first: whichever library process "
+        "ends first, reaped with os.wait4, its elapsed_s from spawn to "
+        "exit), and each library process is told the call's start, its "
+        "spawn and the workers (COHORT_ENV) for its Tracer's cohort spans; "
+        "_rank_nprocs reads torchrun's RANK/WORLD_SIZE ahead of the "
+        "reference launcher's JAX_PROCESS_ID/JAX_NUM_PROCESSES, which it "
+        "keeps",
         ("Library", "read_manifest", "merge_cohort")),
     "pipeline/create_ref.py": (
         "the first line of the module docstring is reworded; the code is "
@@ -211,7 +221,9 @@ DIVERGED = {
         "RUN_SPANS keeps each run's span seconds; every span records the "
         "process's resident high-water mark at its edges, RUN_MEMORY keeps "
         "each run's memory record and PROCESS_SPANS the process's start "
-        "(process_span); cuda_time_ms is the port's",
+        "(process_span); a library process that defuse cohort started "
+        "records its time in the queue and its start as the spans "
+        "cohort.wait and cohort.spawn; cuda_time_ms is the port's",
         ()),
 }
 
